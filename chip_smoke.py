@@ -1,0 +1,459 @@
+"""Smoke run of the PyTorch port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+
+1. device  — the card (``nvidia-smi`` name and power limit; the raw line too).
+2. kernels — builds both hand-written CUDA kernels from ``ops/csrc`` with
+   ``nvcc`` (in parallel), holds each against its plain PyTorch version at the
+   serving shapes and at edge shapes (``gather_pool`` to 1e-4 abs, Hamming
+   exactly), and times kernel, plain version and a PyTorch library call with
+   CUDA events (medians). The bound is the larger of bytes over 3.35 TB/s and
+   operations over the peak rate for their type (H100 SXM data sheet).
+3. serve   — the main path: ``api.Engine`` on ``cuda`` at the default model
+   width (synthetic 4000 movies / 12000 users / 400k ratings, features 128,
+   hidden 256, embed 128, K = 50, 100 walks of length 2, LSH 256 bits x 16
+   tables) with ``pool_impl=gather``, ``gather_impl=pallas``,
+   ``search_method=lsh`` and the port's seeded init: tables, one embedding
+   pass (two ``gather_pool`` launches), then a ``BatchingRecommender`` that
+   answers requests from several threads plus one GET and one POST over HTTP
+   on 127.0.0.1. The kernel launch counts are zeroed just before and read
+   just after. Reports embed time (also with the torch gather formulation
+   that ``gather_impl=auto`` picks), request latency, LSH recall@10 and a
+   ``torch.profiler`` split of host and device time for an embedding pass
+   and for one search of the largest and smallest batch bucket.
+4. serve_default — the default config (dense pool matrices, exact search).
+5. check   — the outputs are finite, unit-norm and of the expected shape, and
+   the CUDA engine agrees with the CPU engine (plain versions) on a small
+   input given the same params and tables.
+
+Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
+exit code and no result line. It exits non-zero at once without a card.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12         # non-tensor-core rate; also used for int32 ALU ops
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def cuda_ms(fn, iters: int = 50, reps: int = 11, warm_s: float = 0.2) -> float:
+    """Median over ``reps`` of the CUDA-event time of ``iters`` calls, per
+    call, after ``warm_s`` seconds of calls (the clocks ramp up under load)."""
+    t_end = time.perf_counter() + warm_s
+    while time.perf_counter() < t_end:
+        fn()
+        torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_profile(fn, calls: int = 20) -> dict:
+    """Host wall time per call against device time per call (sum of the
+    device events' self time in a ``torch.profiler`` window; nothing here
+    runs two kernels at once, so the sum is busy time), and the top kernels.
+    Device fields are None when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    # Device events only: a CPU op's device time repeats its kernels' time.
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / calls
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    return {"wall_ms": wall_ms,
+            "device_ms": dev_ms if events else None,
+            "busy_share": dev_ms / wall_ms if events else None,
+            "top": [[e.key[:60], e.self_device_time_total / 1e3 / calls] for e in top]}
+
+
+def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# 2. kernels
+# ---------------------------------------------------------------------------
+
+def pool_inputs(gen, n, d, b, k, limit, dtype, dev):
+    table = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+    nbrs = torch.randint(-2, n + 1, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    w = torch.rand((b, k), generator=gen, device=dev)
+    return table, nbrs, w
+
+
+def kernel_phase(dev) -> list[dict]:
+    from movie_recommendation_engine_tpu_torch.ops import _build, hamming, pool
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    for name, log in _build.build_logs.items():
+        print(f"[nvcc {name}]\n{log}", file=sys.stderr)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    # gather_pool: edge shapes, then the serving shape (N = B = 4000, K = 50,
+    # D = 256 bf16: the second layer's input; the first layer's is the same).
+    gather_err = 0.0
+    for n, d, b, k, limit, dtype in [(96, 128, 19, 11, 96, torch.float32),
+                                     (37, 100, 7, 6, 30, torch.bfloat16),
+                                     (29, 37, 5, 70, 29, torch.float32),
+                                     (4000, 256, 4000, 50, 4000, torch.bfloat16)]:
+        table, nbrs, w = pool_inputs(gen, n, d, b, k, limit, dtype, dev)
+        got = pool.gather_pool(table, nbrs, w, limit)
+        ref = pool.gather_pool_plain(table, nbrs, w, limit)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(err <= 1e-4, f"gather_pool {n}x{d} B={b} K={k} {dtype}: max err {err}")
+        gather_err = max(gather_err, err)
+    # Serving-shape inputs as the main path gives them: ids in [0, N) or the
+    # sentinel N, weights normalized over the valid slots.
+    n, d, b, k = 4000, 256, 4000, 50
+    table = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    nbrs = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    nbrs[:, 40:] = n
+    w = torch.rand((b, k), generator=gen, device=dev) * (nbrs < n)
+    w = w / w.sum(1, keepdim=True)
+    ids, wm = nbrs.clamp(max=n - 1).long(), w.bfloat16()
+    g_ms = cuda_ms(lambda: pool.gather_pool(table, nbrs, w, n))
+    g_plain = cuda_ms(lambda: pool.gather_pool_plain(table, nbrs, w, n))
+    g_lib = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+        ids, table, per_sample_weights=wm, mode="sum"))
+    g_bytes = n * d * 2 + b * k * 4 * 2 + b * d * 4
+    g_bound, g_by = bound(g_bytes, 2 * b * k * d, FP32_OPS_PER_S)
+
+    # Hamming: edge shapes, then the serving shape (Q = 64, the largest
+    # batch bucket; N = 4000; T = 16 tables of W = 8 words).
+    ham_err = 0
+    for q, n_s, t, wd in [(5, 37, 3, 2), (33, 129, 3, 5), (1, 4000, 16, 8),
+                          (64, 4000, 16, 8)]:
+        qs = torch.randint(-2**31, 2**31, (q, t * wd), generator=gen, device=dev, dtype=torch.int32)
+        ss = torch.randint(-2**31, 2**31, (n_s, t * wd), generator=gen, device=dev, dtype=torch.int32)
+        got = hamming.hamming_distance(qs, ss, t, wd)
+        ref = hamming.hamming_distance_plain(qs, ss, t, wd)
+        torch.cuda.synchronize()
+        mism = int((got != ref).sum().item())
+        check(mism == 0, f"hamming Q={q} N={n_s} T={t} W={wd}: {mism} mismatches")
+        ham_err = max(ham_err, int((got - ref).abs().max().item()))
+    q, n_s, t, wd = 64, 4000, 16, 8
+    h_ms = cuda_ms(lambda: hamming.hamming_distance(qs, ss, t, wd))
+    h_ms_q1 = cuda_ms(lambda: hamming.hamming_distance(qs[:1], ss, t, wd))
+    h_plain = cuda_ms(lambda: hamming.hamming_distance_plain(qs, ss, t, wd), iters=5)
+    # Library yardstick: the +-1 matmul form (ham = (B - q.s) / 2, max over
+    # tables), signatures unpacked once outside the timing as an index would.
+    shifts = torch.arange(32, device=dev)
+
+    def pm(x):
+        bits = (x.long()[..., None] >> shifts) & 1                  # [R, T*W, 32]
+        return (bits.reshape(x.shape[0], t, wd * 32).permute(1, 0, 2)
+                .to(torch.bfloat16) * 2 - 1)                        # [T, R, B]
+
+    q_pm, s_pm = pm(qs), pm(ss)
+    lib_dist = (wd * 32 - torch.bmm(q_pm, s_pm.transpose(1, 2)).float().amax(0)) / 2
+    check(torch.equal(lib_dist.int(), hamming.hamming_distance(qs, ss, t, wd)),
+          "matmul-form Hamming yardstick disagrees")
+    h_lib = cuda_ms(lambda: torch.bmm(q_pm, s_pm.transpose(1, 2)).amax(0))
+    h_bytes = (q + n_s) * t * wd * 4 + q * n_s * 4
+    h_bound, h_by = bound(h_bytes, q * n_s * t * (3 * wd + 1), FP32_OPS_PER_S)
+
+    emit("kernels", build_s=build_s,
+         gather_pool={"shape": "table[4000,256] bf16, nbrs/weights[4000,50]",
+                      "kernel_ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
+                      "bound_us": g_bound * 1e3, "bound_by": g_by,
+                      "bytes": g_bytes, "max_abs_err": gather_err},
+         hamming={"shape": "qsig[64,128] sigs[4000,128] int32 (T=16, W=8)",
+                  "kernel_ms": h_ms, "kernel_ms_q1": h_ms_q1, "plain_ms": h_plain,
+                  "library_ms": h_lib, "bound_us": h_bound * 1e3,
+                  "bound_by": h_by, "bytes": h_bytes, "max_abs_err": ham_err})
+    return [
+        {"name": "gather_pool", "route": "cuda",
+         "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool.cu",
+         "replaces": "movie_recommendation_engine_tpu/ops/pallas/pool.py:141",
+         "launches": None, "max_abs_err": gather_err, "ms": g_ms,
+         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
+         "library_ms": g_lib},
+        {"name": "hamming_distance", "route": "cuda",
+         "source": "movie_recommendation_engine_tpu_torch/ops/csrc/hamming.cu",
+         "replaces": "movie_recommendation_engine_tpu/ops/pallas/hamming.py:51",
+         "launches": None, "max_abs_err": ham_err, "ms": h_ms,
+         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by,
+         "library_ms": h_lib},
+    ]
+
+
+# ---------------------------------------------------------------------------
+# 3./4. serving
+# ---------------------------------------------------------------------------
+
+def drive_server(srv, num_movies: int, threads: int = 8, per_thread: int = 6) -> list[float]:
+    """Requests by item and by history from several threads; checks that
+    every answer excludes its query items. Returns client latencies (ms)."""
+    lat, errors = [], []
+    lock = threading.Lock()
+
+    def client(c):
+        rng = np.random.default_rng(c)
+        try:
+            for r in range(per_thread):
+                t0 = time.perf_counter()
+                if r % 2:
+                    i = int(rng.integers(num_movies))
+                    out, query = srv.recommend_by_item(i, k=10), {i}
+                else:
+                    hist = [int(x) for x in rng.choice(num_movies, 3, replace=False)]
+                    out, query = srv.recommend_by_history(hist, k=10), set(hist)
+                dt = (time.perf_counter() - t0) * 1e3
+                ok = len(out["indices"]) == 10 and not query & set(out["indices"])
+                with lock:
+                    lat.append(dt)
+                    if not ok:
+                        errors.append(out)
+        except Exception as e:  # reported by the check below
+            with lock:
+                errors.append(repr(e))
+
+    ts = [threading.Thread(target=client, args=(c,)) for c in range(threads)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=120)
+    check(not any(t.is_alive() for t in ts), "server clients did not finish")
+    check(not errors, f"bad server answers: {errors[:3]}")
+    return lat
+
+
+def http_roundtrip(srv, data) -> dict:
+    from movie_recommendation_engine_tpu_torch.retrieval.server import make_http_server
+
+    httpd = make_http_server(srv, "127.0.0.1", 0, movie_ids=data.movie_ids,
+                             titles=data.titles)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        mid = int(data.movie_ids[5])
+        with urllib.request.urlopen(f"{base}/recommend?movie_id={mid}&k=5", timeout=30) as r:
+            got = json.loads(r.read())
+        check(len(got["movie_ids"]) == 5 and mid not in got["movie_ids"], f"GET: {got}")
+        hist = [int(m) for m in data.movie_ids[[1, 2, 3]]]
+        req = urllib.request.Request(f"{base}/recommend", method="POST",
+                                     data=json.dumps({"history": hist, "k": 5}).encode())
+        with urllib.request.urlopen(req, timeout=30) as r:
+            posted = json.loads(r.read())
+        check(len(posted["movie_ids"]) == 5 and not set(hist) & set(posted["movie_ids"]),
+              f"POST: {posted}")
+        return {"get": got["movie_ids"], "post": posted["movie_ids"]}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        th.join(timeout=10)
+
+
+def check_embeddings(emb: np.ndarray, shape, what: str) -> None:
+    check(emb.shape == shape, f"{what}: shape {emb.shape} != {shape}")
+    check(bool(np.isfinite(emb).all()), f"{what}: non-finite embeddings")
+    norms = np.linalg.norm(emb, axis=1)
+    check(bool(np.allclose(norms, 1.0, atol=1e-2)), f"{what}: norms {norms.min()}..{norms.max()}")
+
+
+def serve_phase(dev) -> dict:
+    from movie_recommendation_engine_tpu_torch import api, default_config
+    from movie_recommendation_engine_tpu_torch.ops import hamming, pool
+    from movie_recommendation_engine_tpu_torch.retrieval.exact import ExactIndex
+
+    cfg = default_config().override({
+        "data.source": "synthetic", "model.pool_impl": "gather",
+        "model.gather_impl": "pallas", "search.search_method": "lsh"})
+    pool.LAUNCHES = 0
+    hamming.LAUNCHES = 0
+    t0 = time.perf_counter()
+    eng = api.Engine(cfg, device=dev)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.trainer.refresh_neighborhoods()
+    torch.cuda.synchronize()
+    tables_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    emb = eng.embeddings()                       # host copy = sync
+    first_embed_ms = (time.perf_counter() - t0) * 1e3
+    check(pool.LAUNCHES == 2, f"gather_pool launched {pool.LAUNCHES} times in one "
+                              "embedding pass, expected 2 (one per layer)")
+    srv = eng.serve()
+    try:
+        srv.reset_stats()
+        lat = drive_server(srv, eng.data.num_movies)
+        http = http_roundtrip(srv, eng.data)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    launches = {"gather_pool": pool.LAUNCHES, "hamming_distance": hamming.LAUNCHES}
+    check(launches["hamming_distance"] > 0, "hamming kernel never launched while serving")
+    check(stats["num_requests"] >= 32, f"only {stats['num_requests']} requests answered")
+    check_embeddings(emb, (eng.data.num_movies, cfg.model.embed_dim), "serve")
+
+    # Warm embedding passes (after the counted run).
+    def embed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.trainer.movie_embeddings()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+    embed_ms = statistics.median(embed() for _ in range(7))
+    # The same pass with the torch gather + einsum formulation (what
+    # gather_impl="auto" resolves to), for the kernel-vs-auto comparison.
+    eng.trainer.gather_impl = "xla"
+    embed_ms_xla = statistics.median(embed() for _ in range(7))
+    eng.trainer.gather_impl = "pallas"
+
+    # LSH recall@10 against exact search, 256 movie queries.
+    qi = np.random.default_rng(0).choice(emb.shape[0], 256, replace=False)
+    exact = ExactIndex(emb.shape[1], device=dev)
+    exact.build(emb)
+    _, ei = exact.search(emb[qi], 10)
+    _, li = srv.index.search(emb[qi], 10)
+    ei, li = ei.cpu().numpy(), li.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / 10 for a, b in zip(ei, li)]))
+    # Where the time goes in one embedding pass and in one search of the
+    # largest (64) and smallest (1) batch bucket, at the server's search_k.
+    sk = srv._search_k
+    profiles = {"embed": device_profile(eng.trainer.movie_embeddings, 10),
+                "search_q64": device_profile(lambda: srv.index.search(emb[qi[:64]], sk)[1].cpu()),
+                "search_q1": device_profile(lambda: srv.index.search(emb[qi[:1]], sk)[1].cpu())}
+    out = {"init_s": init_s, "tables_ms": tables_ms, "first_embed_ms": first_embed_ms,
+           "embed_ms": embed_ms, "embed_ms_xla": embed_ms_xla,
+           "requests": stats["num_requests"],
+           "batches": stats["num_batches"], "mean_batch": stats["mean_batch_size"],
+           "latency_ms_p50": stats["latency_ms_p50"], "latency_ms_p99": stats["latency_ms_p99"],
+           "client_ms_p50": float(np.percentile(lat, 50)),
+           "client_ms_p99": float(np.percentile(lat, 99)),
+           "lsh_recall_at_10": recall, "launches": launches, "http": http,
+           "profiles": profiles,
+           "num_movies": eng.data.num_movies, "num_edges": eng.trainer.csr.num_edges}
+    emit("serve", **out)
+    return launches
+
+
+def serve_default_phase(dev) -> None:
+    from movie_recommendation_engine_tpu_torch import api, default_config
+
+    cfg = default_config().override({"data.source": "synthetic"})
+    eng = api.Engine(cfg, device=dev)
+    t0 = time.perf_counter()
+    emb = eng.embeddings()
+    embed_ms = (time.perf_counter() - t0) * 1e3
+    check(len(eng.trainer.pool_mats) == cfg.model.num_layers, "dense rung not selected")
+    dense_embed = device_profile(eng.trainer.movie_embeddings, 10)
+    check_embeddings(emb, (eng.data.num_movies, cfg.model.embed_dim), "serve_default")
+    srv = eng.serve()
+    try:
+        lat = drive_server(srv, eng.data.num_movies, threads=4, per_thread=4)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    mid = int(eng.data.movie_ids[3])
+    recs = eng.recommend(movie_id=mid, k=5)
+    check(len(recs) == 5 and all(r["movieId"] != mid for r in recs), "recommend")
+    emit("serve_default", method=srv.method, pool="dense", first_embed_ms=embed_ms,
+         embed_profile=dense_embed,
+         requests=stats["num_requests"], latency_ms_p50=stats["latency_ms_p50"],
+         latency_ms_p99=stats["latency_ms_p99"], client_ms_p50=float(np.median(lat)),
+         metrics=eng.evaluate())
+
+
+def check_phase(dev) -> None:
+    """The CUDA engine against the CPU engine (plain versions) on a small
+    input with the same params and tables, float32 compute."""
+    from movie_recommendation_engine_tpu_torch import api, small_test_config
+
+    cfg = small_test_config().override({
+        "model.pool_impl": "gather", "model.gather_impl": "pallas",
+        "search.search_method": "lsh", "train.compute_dtype": "float32"})
+    gpu = api.Engine(cfg, device=dev)
+    cpu = api.Engine(cfg, device="cpu")
+
+    def to_cpu(tree):
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [to_cpu(v) for v in tree]
+        return tree.cpu()
+
+    gpu.trainer.refresh_neighborhoods()
+    cpu.trainer.params = to_cpu(gpu.trainer.params)
+    cpu.trainer.set_neighborhood_tables([(nb.cpu(), w.cpu()) for nb, w in gpu.trainer.nbr_tables])
+    eg, ec = gpu.embeddings(), cpu.embeddings()
+    check_embeddings(eg, ec.shape, "check")
+    err = float(np.abs(eg - ec).max())
+    check(err <= 1e-4, f"CUDA vs CPU embeddings differ by {err}")
+    emit("check", embed_max_abs_err=err, tolerance=1e-4, rows=int(eg.shape[0]))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    import movie_recommendation_engine_tpu_torch  # noqa: F401  (fails outside the repo)
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
+         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
+    kernels = kernel_phase(dev)
+    launches = serve_phase(dev)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    serve_default_phase(dev)
+    check_phase(dev)
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,121 @@
+"""High-level library API of the PyTorch port: the serving surface.
+
+    from movie_recommendation_engine_tpu_torch import api, default_config
+
+    cfg = default_config()
+    cfg.data.source = "synthetic"
+    engine = api.load(cfg, checkpoint="checkpoints/best_model")   # on cuda
+    emb = engine.embeddings()                   # [num_movies, embed_dim]
+    engine.evaluate()                           # HR@k / MRR dict
+    engine.recommend(movie_id=3, k=10)          # ranked (movieId, title, score)
+    engine.recommend(history=[3, 15, 40], k=10) # user-as-centroid query
+    server = engine.serve()                     # BatchingRecommender
+
+Port of ``movie_recommendation_engine_tpu/api.py`` without training
+(``fit``/``train``/``save_checkpoint`` come with the training slice).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .config import Config, default_config
+from .core.device import resolve_device
+from .core.logging import MetricsLogger
+
+
+class Engine:
+    """A loaded dataset + model on ``device`` (``cuda`` unless ``"cpu"`` is
+    asked for; raises when CUDA is asked for and absent)."""
+
+    def __init__(self, cfg: Config | None = None,
+                 logger: MetricsLogger | None = None, device=None):
+        from .graph import dataset
+        from .train.trainer import Trainer
+
+        self.device = resolve_device(device)
+        self.cfg = cfg or default_config()
+        self.log = logger or MetricsLogger(pretty=False)
+        self.data = dataset.load(self.cfg)
+        self.trainer = Trainer(self.cfg, self.data, self.log, device=self.device)
+        self._emb: np.ndarray | None = None
+
+    def load_checkpoint(self, path: str) -> "Engine":
+        """A JAX-format ``.npz`` checkpoint (``core/checkpoint.py``)."""
+        if path.endswith(".pt"):
+            raise NotImplementedError(
+                "reference .pt checkpoints are not ported yet (ROADMAP queue 1)")
+        self.trainer.load_checkpoint(path)
+        self._emb = None
+        return self
+
+    def embeddings(self, refresh: bool = False) -> np.ndarray:
+        """[num_movies, embed_dim] L2-normalized item embeddings (cached)."""
+        if self._emb is None or refresh:
+            self._emb = self.trainer.movie_embeddings().cpu().numpy()
+        return self._emb
+
+    def evaluate(self, pairs: np.ndarray | None = None) -> dict:
+        return self.trainer.evaluate(pairs)
+
+    def recommend(self, movie_id: int | None = None,
+                  history: list[int] | None = None, k: int = 10,
+                  by_index: bool = False) -> list[dict]:
+        """Top-k similar items for one movieId or a watch history (external
+        movieIds unless ``by_index``). Exact search; ``serve()`` builds a
+        batched / ANN server."""
+        emb = self.embeddings()
+        lut = self.data.movie_id_to_idx()
+
+        def to_idx(mid):
+            i = int(mid) if by_index else lut.get(int(mid), -1)
+            if not 0 <= i < emb.shape[0]:
+                raise KeyError(f"unknown movie {mid}")
+            return i
+
+        if history:
+            idxs = [to_idx(m) for m in history]
+            q = emb[idxs].mean(axis=0)
+            q /= max(float(np.linalg.norm(q)), 1e-12)
+            exclude = set(idxs)
+        elif movie_id is not None:
+            qi = to_idx(movie_id)
+            q, exclude = emb[qi], {qi}
+        else:
+            raise ValueError("pass movie_id or history")
+
+        sims = emb @ q
+        out = []
+        for i in np.argsort(-sims):
+            if int(i) in exclude:
+                continue
+            out.append({
+                "movieId": int(self.data.movie_ids[i]),
+                "title": self.data.titles[i],
+                "genres": self.data.genres[i],
+                "score": float(sims[i]),
+            })
+            if len(out) == k:
+                break
+        return out
+
+    def serve(self, method: str | None = None, **kw):
+        """BatchingRecommender over the current embeddings on this engine's
+        device (``retrieval/server.py``); the caller owns ``close()``."""
+        from .retrieval.server import BatchingRecommender
+
+        return BatchingRecommender(
+            self.embeddings(), method=method or self.cfg.search.search_method,
+            cfg=self.cfg, max_batch=self.cfg.serve.max_batch,
+            max_wait_ms=self.cfg.serve.max_wait_ms,
+            max_k=self.cfg.serve.max_k, device=self.device, **kw,
+        )
+
+
+def load(cfg: Config | None = None, checkpoint: str | None = None,
+         device=None) -> Engine:
+    """Engine with the port's seeded params, or a checkpoint's if given."""
+    eng = Engine(cfg, device=device)
+    if checkpoint:
+        eng.load_checkpoint(checkpoint)
+    return eng

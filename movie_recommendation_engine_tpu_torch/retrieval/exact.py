@@ -1,0 +1,47 @@
+"""Exact brute-force retrieval: one matmul + top-k.
+
+Port of ``movie_recommendation_engine_tpu/retrieval/exact.py`` (replaces
+FAISS ``IndexFlatL2``). Squared-L2 distances come from inner products:
+
+    ||q - x||^2 = ||q||^2 + ||x||^2 - 2 q.x
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.device import resolve_device
+
+
+class ExactIndex:
+    """build(embeddings) then search(queries, k) -> (distances, indices),
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for)."""
+
+    def __init__(self, dim: int, device=None):
+        self.dim = dim
+        self.device = resolve_device(device)
+        self._emb: torch.Tensor | None = None
+        self._sqnorm: torch.Tensor | None = None
+
+    @property
+    def ntotal(self) -> int:
+        return 0 if self._emb is None else int(self._emb.shape[0])
+
+    def build(self, embeddings) -> None:
+        self._emb = torch.as_tensor(embeddings, dtype=torch.float32, device=self.device)
+        self._sqnorm = (self._emb * self._emb).sum(dim=1)
+
+    def search(self, queries, k: int = 10):
+        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
+        return _l2_topk(q, self._emb, self._sqnorm, k)
+
+
+def _l2_topk(q: torch.Tensor, emb: torch.Tensor, sqnorm: torch.Tensor, k: int):
+    ip = q @ emb.T
+    dist = (q * q).sum(dim=1, keepdim=True) + sqnorm[None, :] - 2.0 * ip
+    return torch.topk(dist, k, dim=1, largest=False)
+
+
+def similarity_topk(q: torch.Tensor, emb: torch.Tensor, k: int):
+    """Inner-product variant (the same ranking for unit-norm embeddings)."""
+    return torch.topk(q @ emb.T, k, dim=1)

@@ -1,0 +1,194 @@
+"""PyTorch port, kernel modules: ``ops/pool.py`` and ``ops/hamming.py``.
+
+The plain PyTorch versions (what the wrappers run on CPU tensors) are held
+against the JAX package's Pallas kernels in interpret mode. Tests marked
+``cuda`` hold the CUDA kernels against the plain versions on the card; they
+skip on a machine without one. On the card (no JAX there) run them with
+``python -m pytest tests/test_torch_ops.py -m cuda --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from movie_recommendation_engine_tpu_torch.ops import hamming as t_hamming
+from movie_recommendation_engine_tpu_torch.ops import pool as t_pool
+
+
+@pytest.fixture(scope="module")
+def jax_ops():
+    pytest.importorskip("jax")
+    from movie_recommendation_engine_tpu.ops.pallas import hamming, pool
+
+    return hamming, pool
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def _bf16_round(x: np.ndarray) -> np.ndarray:
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _pool_inputs(seed, n, d, b, k, limit):
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((n, d)).astype(np.float32)
+    # Ids span negatives, the valid range, the masked band [limit, n) and
+    # the sentinel n; the first row also hits the ragged last rows.
+    nbrs = rng.integers(-2, n + 1, (b, k)).astype(np.int32)
+    nbrs[0, :3] = [n - 1, n - 2, limit - 1]
+    w = rng.random((b, k)).astype(np.float32)
+    return table, nbrs, w
+
+
+def _pool_ref(table, nbrs, w, limit):
+    valid = (nbrs >= 0) & (nbrs < limit)
+    rows = table[np.clip(nbrs, 0, limit - 1)].astype(np.float64)
+    return np.einsum("bk,bkd->bd", np.where(valid, w, 0.0), rows)
+
+
+# (n, d, b, k, limit, dtype): f32 and bf16 tables, D = 128 and D with a
+# tail (not a multiple of 8), a ragged N, valid_limit below N.
+POOL_CASES = [
+    (96, 128, 19, 11, 96, "float32"),
+    (35, 128, 9, 5, 35, "bfloat16"),
+    (37, 100, 7, 6, 30, "bfloat16"),
+    (29, 37, 5, 4, 29, "float32"),
+]
+
+
+@pytest.mark.parametrize("n,d,b,k,limit,dtype", POOL_CASES)
+def test_gather_pool_plain_matches_pallas(jax_ops, n, d, b, k, limit, dtype):
+    import jax.numpy as jnp
+
+    _, j_pool = jax_ops
+    table, nbrs, w = _pool_inputs(0, n, d, b, k, limit)
+    if dtype == "bfloat16":
+        table = _bf16_round(table)  # both sides read the same bf16 values
+    ref = _pool_ref(table, nbrs, w, limit)
+    got = t_pool.gather_pool(torch.from_numpy(table).to(getattr(torch, dtype)),
+                             torch.from_numpy(nbrs), torch.from_numpy(w), limit)
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    jax_out = j_pool.gather_pool(jnp.asarray(table, dtype=getattr(jnp, dtype)),
+                                 jnp.asarray(nbrs), jnp.asarray(w),
+                                 valid_limit=limit, tile_b=4, interpret=True)
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
+    np.testing.assert_allclose(np.asarray(jax_out), ref, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), atol=1e-5)
+
+
+def test_gather_pool_rejects_bad_limit():
+    table = torch.zeros(4, 8)
+    nbrs = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        t_pool.gather_pool(table, nbrs, torch.ones(2, 3), valid_limit=5)
+    with pytest.raises(ValueError):
+        t_pool.gather_pool(table, nbrs, torch.ones(2, 2), valid_limit=4)
+
+
+def _random_sigs(rng, rows, tw):
+    return rng.integers(0, 2**32, (rows, tw), dtype=np.uint32)
+
+
+# (q, n, t, w): ragged Q and N against the JAX tile sizes, 1-word tables.
+HAMMING_CASES = [(5, 37, 3, 2), (9, 9, 2, 1), (6, 64, 4, 2)]
+
+
+@pytest.mark.parametrize("q,n,t,w", HAMMING_CASES)
+def test_hamming_plain_matches_pallas_exactly(jax_ops, q, n, t, w):
+    import jax.numpy as jnp
+
+    j_ham, _ = jax_ops
+    rng = np.random.default_rng(q * 100 + n)
+    qsig, sigs = _random_sigs(rng, q, t * w), _random_sigs(rng, n, t * w)
+    sigs[: min(q, n)] = qsig[: min(q, n)]      # zero distances on a diagonal
+    ref = np.asarray(j_ham.hamming_distance(
+        jnp.asarray(qsig), jnp.asarray(sigs), num_tables=t, words=w,
+        tile_q=8, tile_n=16, interpret=True))
+    got = t_hamming.hamming_distance(torch.from_numpy(qsig.view(np.int32)),
+                                     torch.from_numpy(sigs.view(np.int32)), t, w)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_hamming_topk_matches_pallas_with_ties(jax_ops):
+    """Integer distances tie constantly; the indices must come out in
+    ``lax.top_k``'s order (smaller index first among equal distances)."""
+    import jax.numpy as jnp
+
+    j_ham, _ = jax_ops
+    rng = np.random.default_rng(7)
+    t, w, k = 2, 1, 12
+    qsig, sigs = _random_sigs(rng, 4, t * w), _random_sigs(rng, 50, t * w)
+    sigs[10:20] = sigs[5]                       # ten exact duplicates
+    d_ref, i_ref = j_ham.hamming_topk(jnp.asarray(qsig), jnp.asarray(sigs), k,
+                                      num_tables=t, words=w, interpret=True)
+    d, i = t_hamming.hamming_topk(torch.from_numpy(qsig.view(np.int32)),
+                                  torch.from_numpy(sigs.view(np.int32)), k, t, w)
+    assert len(set(np.asarray(d_ref).ravel().tolist())) < k * 4  # ties present
+    np.testing.assert_array_equal(d.numpy(), np.asarray(d_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+# Serving shape (N = B = 4000, K = 50, D = 256 bf16) plus edge shapes:
+# f32, a D with a tail (scalar path), tiny D, K above one warp.
+CUDA_POOL_CASES = POOL_CASES + [
+    (4000, 256, 4000, 50, 4000, "bfloat16"),
+    (4000, 256, 777, 50, 3000, "float32"),
+    (50, 3, 10, 70, 50, "bfloat16"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,k,limit,dtype", CUDA_POOL_CASES)
+def test_gather_pool_kernel_matches_plain(cuda, n, d, b, k, limit, dtype):
+    table, nbrs, w = _pool_inputs(1, n, d, b, k, limit)
+    t = torch.from_numpy(table).to(cuda, getattr(torch, dtype))
+    nb, ww = torch.from_numpy(nbrs).to(cuda), torch.from_numpy(w).to(cuda)
+    before = t_pool.LAUNCHES
+    got = t_pool.gather_pool(t, nb, ww, limit)
+    torch.cuda.synchronize()
+    assert t_pool.LAUNCHES == before + 1
+    ref = t_pool.gather_pool_plain(t, nb, ww, limit)
+    torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gather_pool_kernel_unaligned_table(cuda):
+    """A table view that is not 16-byte aligned takes the scalar path."""
+    table, nbrs, w = _pool_inputs(2, 65, 128, 33, 9, 64)
+    base = torch.from_numpy(table).to(cuda, torch.bfloat16).reshape(-1)
+    t = base[1:].reshape(-1)[: 64 * 128].reshape(64, 128)
+    assert t.data_ptr() % 16 != 0
+    nb = torch.from_numpy(nbrs).clamp(max=64).to(cuda)
+    ww = torch.from_numpy(w).to(cuda)
+    got = t_pool.gather_pool(t, nb, ww, 64)
+    torch.testing.assert_close(got, t_pool.gather_pool_plain(t, nb, ww, 64),
+                               atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,t,w", HAMMING_CASES + [(64, 4000, 16, 8),
+                                                     (1, 4000, 16, 8),
+                                                     (33, 129, 3, 5)])
+def test_hamming_kernel_matches_plain(cuda, q, n, t, w):
+    rng = np.random.default_rng(q + n)
+    qsig = torch.from_numpy(_random_sigs(rng, q, t * w).view(np.int32)).to(cuda)
+    sigs = torch.from_numpy(_random_sigs(rng, n, t * w).view(np.int32)).to(cuda)
+    before = t_hamming.LAUNCHES
+    got = t_hamming.hamming_distance(qsig, sigs, t, w)
+    torch.cuda.synchronize()
+    assert t_hamming.LAUNCHES == before + 1
+    ref = t_hamming.hamming_distance_plain(qsig, sigs, t, w)
+    assert torch.equal(got, ref)
+    d, i = t_hamming.hamming_topk(qsig, sigs, min(10, n), t, w)
+    d_ref, i_ref = t_hamming.smallest_k(ref, min(10, n))
+    assert torch.equal(d, d_ref) and torch.equal(i, i_ref)
