@@ -4,13 +4,17 @@
 
 Phases, one JSON line each:
 
-1. device  — the card (``nvidia-smi`` name and power limit; the raw line too).
+1. device  — the card (``nvidia-smi`` name and power limit; the raw line too)
+   and its maximum SM clock (``clocks.max.sm``), which the bounds use.
 2. kernels — builds both hand-written CUDA kernels from ``ops/csrc`` with
    ``nvcc`` (in parallel), holds each against its plain PyTorch version at the
    serving shapes and at edge shapes (``gather_pool`` to 1e-4 abs, Hamming
-   exactly), and times kernel, plain version and a PyTorch library call with
-   CUDA events (medians). The bound is the larger of bytes over 3.35 TB/s and
-   operations over the peak rate for their type (H100 SXM data sheet).
+   exactly), and times kernel, plain version and a PyTorch library call.
+   Times are device times: CUDA events around calls that run back to back on
+   the card behind a spin that outlasts the host's enqueue, cross-checked
+   against the profiler's device time per call; the host's cost per call
+   (us) is reported beside them (``cuda_ms``, ``timed``). Hamming is timed at
+   every server batch bucket (Q = 1..64). Bounds come from ``core/roofline.py``.
 3. serve   — the main path: ``api.Engine`` on ``cuda`` at the default model
    width (synthetic 4000 movies / 12000 users / 400k ratings, features 128,
    hidden 256, embed 128, K = 50, 100 walks of length 2, LSH 256 bits x 16
@@ -46,9 +50,6 @@ import urllib.request
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12         # non-tensor-core rate; also used for int32 ALU ops
-
 
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
@@ -59,24 +60,70 @@ def check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def cuda_ms(fn, iters: int = 50, reps: int = 11, warm_s: float = 0.2) -> float:
-    """Median over ``reps`` of the CUDA-event time of ``iters`` calls, per
-    call, after ``warm_s`` seconds of calls (the clocks ramp up under load)."""
+# ---------------------------------------------------------------------------
+# Device timing. ``cuda_ms`` queues a spin (``torch.cuda._sleep``) ahead of
+# the start event that outlasts the host's enqueue of all the timed calls, so
+# they run back to back on the card and the events time the device. Without
+# the spin, a call whose host cost exceeds its kernel's time is timed by the
+# host.
+# ---------------------------------------------------------------------------
+
+# Cycles per second of the spin that torch.cuda._sleep counts (the SM clock;
+# at a lower clock the spin only lasts longer).
+GPU_SPIN_HZ = 1.98e9
+
+
+def host_us(fn, iters: int = 50) -> float:
+    """Host cost of one call (us): the time to enqueue ``iters`` calls while
+    the device is held busy by a spin, so no call waits on the device."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.05 * GPU_SPIN_HZ))
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e6 / iters
+
+
+def cuda_ms(fn, iters: int = 50, reps: int = 11, warm_s: float = 0.2) -> dict:
+    """Device time per call: the median over ``reps`` of the CUDA-event time
+    of ``iters`` calls that run back to back on the card, after ``warm_s``
+    seconds of calls (the clocks ramp up under load). A spin
+    (``torch.cuda._sleep``) queued before the start event outlasts the host's
+    enqueue of the ``iters`` calls (twice the measured host cost, plus
+    0.1 ms), so the events time the device and not the host. Returns
+    ``{"ms": device ms per call, "host_us": host us per call}``."""
     t_end = time.perf_counter() + warm_s
     while time.perf_counter() < t_end:
         fn()
         torch.cuda.synchronize()
+    host = host_us(fn, iters)
+    spin = int((2 * host * 1e-6 * iters + 1e-4) * GPU_SPIN_HZ)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         start.record()
         for _ in range(iters):
             fn()
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
+    return {"ms": statistics.median(times), "host_us": host}
+
+
+def timed(fn, iters: int = 50, profile_calls: int = 20) -> dict:
+    """``cuda_ms`` and, as its cross-check, the profiler's device time per
+    call (``device_profile``: the device events' own time, so no gap between
+    launches) and its kernels per call."""
+    t = cuda_ms(fn, iters)
+    prof = device_profile(fn, profile_calls)
+    t["profiler_ms"] = prof["device_ms"]
+    t["kernels_per_call"] = prof["kernels_per_call"]
+    return t
 
 
 def device_profile(fn, calls: int = 20) -> dict:
@@ -102,13 +149,9 @@ def device_profile(fn, calls: int = 20) -> dict:
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
     return {"wall_ms": wall_ms,
             "device_ms": dev_ms if events else None,
+            "kernels_per_call": sum(e.count for e in events) / calls,
             "busy_share": dev_ms / wall_ms if events else None,
             "top": [[e.key[:60], e.self_device_time_total / 1e3 / calls] for e in top]}
-
-
-def bound(nbytes: float, ops: float, ops_rate: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 # ---------------------------------------------------------------------------
@@ -122,7 +165,8 @@ def pool_inputs(gen, n, d, b, k, limit, dtype, dev):
     return table, nbrs, w
 
 
-def kernel_phase(dev) -> list[dict]:
+def kernel_phase(dev, sm_clock_mhz: float) -> list[dict]:
+    from movie_recommendation_engine_tpu_torch.core import roofline
     from movie_recommendation_engine_tpu_torch.ops import _build, hamming, pool
 
     t0 = time.perf_counter()
@@ -155,20 +199,28 @@ def kernel_phase(dev) -> list[dict]:
     w = torch.rand((b, k), generator=gen, device=dev) * (nbrs < n)
     w = w / w.sum(1, keepdim=True)
     ids, wm = nbrs.clamp(max=n - 1).long(), w.bfloat16()
-    g_ms = cuda_ms(lambda: pool.gather_pool(table, nbrs, w, n))
+    g = timed(lambda: pool.gather_pool(table, nbrs, w, n))
     g_plain = cuda_ms(lambda: pool.gather_pool_plain(table, nbrs, w, n))
-    g_lib = cuda_ms(lambda: torch.nn.functional.embedding_bag(
+    g_lib = timed(lambda: torch.nn.functional.embedding_bag(
         ids, table, per_sample_weights=wm, mode="sum"))
-    g_bytes = n * d * 2 + b * k * 4 * 2 + b * d * 4
-    g_bound, g_by = bound(g_bytes, 2 * b * k * d, FP32_OPS_PER_S)
+    g_bound = roofline.gather_pool_bound(n, d, b, k, table_bytes=2)
+    # The kernel reads all K neighbour rows (sentinels clamp to row N - 1).
+    g_gathered = b * k * d * 2
 
-    # Hamming: edge shapes, then the serving shape (Q = 64, the largest
-    # batch bucket; N = 4000; T = 16 tables of W = 8 words).
+    # Hamming: edge shapes (ragged Q and N, scalar and vector paths, 32
+    # tables), then the serving shape: Q = 64, the largest batch bucket;
+    # N = 4000; T = 16 tables of W = 8 words.
+    def sig_pair(q, n_s, t, wd):
+        return (torch.randint(-2**31, 2**31, (q, t * wd), generator=gen, device=dev,
+                              dtype=torch.int32),
+                torch.randint(-2**31, 2**31, (n_s, t * wd), generator=gen, device=dev,
+                              dtype=torch.int32))
+
     ham_err = 0
-    for q, n_s, t, wd in [(5, 37, 3, 2), (33, 129, 3, 5), (1, 4000, 16, 8),
+    for q, n_s, t, wd in [(5, 37, 3, 2), (33, 129, 3, 5), (2, 4000, 16, 8),
+                          (17, 4001, 16, 8), (65, 129, 32, 8), (1, 4000, 16, 8),
                           (64, 4000, 16, 8)]:
-        qs = torch.randint(-2**31, 2**31, (q, t * wd), generator=gen, device=dev, dtype=torch.int32)
-        ss = torch.randint(-2**31, 2**31, (n_s, t * wd), generator=gen, device=dev, dtype=torch.int32)
+        qs, ss = sig_pair(q, n_s, t, wd)
         got = hamming.hamming_distance(qs, ss, t, wd)
         ref = hamming.hamming_distance_plain(qs, ss, t, wd)
         torch.cuda.synchronize()
@@ -176,8 +228,9 @@ def kernel_phase(dev) -> list[dict]:
         check(mism == 0, f"hamming Q={q} N={n_s} T={t} W={wd}: {mism} mismatches")
         ham_err = max(ham_err, int((got - ref).abs().max().item()))
     q, n_s, t, wd = 64, 4000, 16, 8
-    h_ms = cuda_ms(lambda: hamming.hamming_distance(qs, ss, t, wd))
-    h_ms_q1 = cuda_ms(lambda: hamming.hamming_distance(qs[:1], ss, t, wd))
+    by_q = {}
+    for qq in (64, 32, 16, 8, 4, 2, 1):
+        by_q[qq] = timed(lambda qq=qq: hamming.hamming_distance(qs[:qq], ss, t, wd))
     h_plain = cuda_ms(lambda: hamming.hamming_distance_plain(qs, ss, t, wd), iters=5)
     # Library yardstick: the +-1 matmul form (ham = (B - q.s) / 2, max over
     # tables), signatures unpacked once outside the timing as an index would.
@@ -192,32 +245,44 @@ def kernel_phase(dev) -> list[dict]:
     lib_dist = (wd * 32 - torch.bmm(q_pm, s_pm.transpose(1, 2)).float().amax(0)) / 2
     check(torch.equal(lib_dist.int(), hamming.hamming_distance(qs, ss, t, wd)),
           "matmul-form Hamming yardstick disagrees")
-    h_lib = cuda_ms(lambda: torch.bmm(q_pm, s_pm.transpose(1, 2)).amax(0))
-    h_bytes = (q + n_s) * t * wd * 4 + q * n_s * 4
-    h_bound, h_by = bound(h_bytes, q * n_s * t * (3 * wd + 1), FP32_OPS_PER_S)
+    h_lib = timed(lambda: torch.bmm(q_pm, s_pm.transpose(1, 2)).amax(0))
+    h_bound = roofline.hamming_bound(q, n_s, t, wd, sm_clock_mhz)
+    h_bound_q1 = roofline.hamming_bound(1, n_s, t, wd, sm_clock_mhz)
+    h = by_q[64]
 
-    emit("kernels", build_s=build_s,
+    emit("kernels", build_s=build_s, sm_clock_mhz=sm_clock_mhz,
          gather_pool={"shape": "table[4000,256] bf16, nbrs/weights[4000,50]",
-                      "kernel_ms": g_ms, "plain_ms": g_plain, "library_ms": g_lib,
-                      "bound_us": g_bound * 1e3, "bound_by": g_by,
-                      "bytes": g_bytes, "max_abs_err": gather_err},
-         hamming={"shape": "qsig[64,128] sigs[4000,128] int32 (T=16, W=8)",
-                  "kernel_ms": h_ms, "kernel_ms_q1": h_ms_q1, "plain_ms": h_plain,
-                  "library_ms": h_lib, "bound_us": h_bound * 1e3,
-                  "bound_by": h_by, "bytes": h_bytes, "max_abs_err": ham_err})
+                      "kernel": g, "plain": g_plain, "library": g_lib,
+                      "bound": g_bound, "bound_share": g_bound["ms"] / g["ms"],
+                      "gathered_bytes": g_gathered,
+                      "gathered_tb_per_s": g_gathered / g["ms"] / 1e9,
+                      "gathered_tb_per_s_profiler": (g_gathered / g["profiler_ms"] / 1e9
+                                                     if g["profiler_ms"] else None),
+                      "max_abs_err": gather_err},
+         hamming={"shape": "qsig[Q,128] sigs[4000,128] int32 (T=16, W=8)",
+                  "kernel_by_q": by_q,
+                  "plain": h_plain, "library": h_lib,
+                  "bound_q64": h_bound, "bound_q1": h_bound_q1,
+                  "bound_share_q64": h_bound["ms"] / h["ms"],
+                  "carry_save_share_q64": h_bound["routes"]["carry_save"] / h["ms"],
+                  "bound_share_q1": h_bound_q1["ms"] / by_q[1]["ms"],
+                  "max_abs_err": ham_err})
     return [
         {"name": "gather_pool", "route": "cuda",
          "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool.cu",
          "replaces": "movie_recommendation_engine_tpu/ops/pallas/pool.py:141",
-         "launches": None, "max_abs_err": gather_err, "ms": g_ms,
-         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": g_lib},
+         "launches": None, "max_abs_err": gather_err, "ms": g["ms"],
+         "profiler_ms": g["profiler_ms"], "host_us": g["host_us"],
+         "plain_ms": g_plain["ms"], "bound_ms": g_bound["ms"], "bound_by": g_bound["by"],
+         "library_ms": g_lib["ms"]},
         {"name": "hamming_distance", "route": "cuda",
          "source": "movie_recommendation_engine_tpu_torch/ops/csrc/hamming.cu",
          "replaces": "movie_recommendation_engine_tpu/ops/pallas/hamming.py:51",
-         "launches": None, "max_abs_err": ham_err, "ms": h_ms,
-         "plain_ms": h_plain, "bound_ms": h_bound, "bound_by": h_by,
-         "library_ms": h_lib},
+         "launches": None, "max_abs_err": ham_err, "ms": h["ms"],
+         "profiler_ms": h["profiler_ms"], "host_us": h["host_us"],
+         "ms_q1": by_q[1]["ms"], "profiler_ms_q1": by_q[1]["profiler_ms"],
+         "plain_ms": h_plain["ms"], "bound_ms": h_bound["ms"], "bound_by": h_bound["by"],
+         "library_ms": h_lib["ms"]},
     ]
 
 
@@ -439,9 +504,13 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
-    emit("device", nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         name=torch.cuda.get_device_name(0), count=torch.cuda.device_count())
-    kernels = kernel_phase(dev)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                           timeout=60, check=True).stdout.strip().splitlines()[0]
+    emit("device", nvidia_smi=smi, sm_clock_max_mhz=float(clock), torch=torch.__version__,
+         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+         count=torch.cuda.device_count())
+    kernels = kernel_phase(dev, float(clock))
     launches = serve_phase(dev)
     for k in kernels:
         k["launches"] = launches[k["name"]]

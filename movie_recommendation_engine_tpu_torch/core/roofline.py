@@ -1,0 +1,85 @@
+"""Least device times (bounds) of the port's kernels on an NVIDIA H100 SXM.
+
+A bound is the larger of the bytes the function must move (each input read
+once, each output written once) over the memory rate and, for each kind of
+operation, its count over the card's rate for that kind. ``chip_smoke.py``
+prints them beside the measured times. Pure arithmetic, no device needed.
+
+Rates: NVIDIA's H100 SXM data sheet (3.35 TB/s HBM3, 67 TFLOP/s float32
+outside the tensor cores, 1,979 TOP/s int8 dense) and the CUDA C++
+Programming Guide's table of arithmetic-instruction throughput for compute
+capability 9.0 (results per clock per SM: 64 for 32-bit integer add, logic
+and min, 16 for population count), times 132 SMs and the SM clock.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+SMS = 132
+INT32_PER_CLOCK_SM = 64
+POPC_PER_CLOCK_SM = 16
+SM_CLOCK_MHZ = 1980            # H100 SXM maximum SM clock
+
+
+def bound_ms(nbytes: float, *ops_and_rates: tuple[float, float]) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"): the larger of nbytes over the memory
+    rate and each (count, rate per second) pair's count over its rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max((n / rate for n, rate in ops_and_rates), default=0.0)
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def hamming_bytes(q: int, n: int, tables: int, words: int) -> int:
+    """Queries and signatures read once (int32 words), distances written once."""
+    return (q + n) * tables * words * 4 + q * n * 4
+
+
+def hamming_bound(q: int, n: int, tables: int, words: int,
+                  sm_clock_mhz: float = SM_CLOCK_MHZ) -> dict:
+    """Bound of ``dist[q, n] = min_t sum_w popc(qsig ^ sig)``: the least,
+    over the routes that compute it, of each route's bound. Per (query, row,
+    table):
+
+    - ``popc_per_word``: W POPC; an XOR and an add per word and a min
+      (2W + 1 int32 ops).
+    - ``carry_save`` (``csrc/hamming.cu`` for W a multiple of 8): per 8
+      words, 8 XORs, 4 carry-save steps of two LOP3s, 4 POPC and 3 ops to
+      sum them; a min per table. Other W as ``popc_per_word``.
+    - ``int8_tensor_core``: popc(a ^ b) = popc(a) + popc(b) - 2 popc(a & b),
+      the last term a 0/1 int8 product of depth 32W (2 operations a
+      multiply-add); 3 int32 ops to combine and take the min.
+
+    ``ms``/``by``/``route`` are the least route's; ``routes`` holds each
+    route's ms, ``bytes_ms`` the bytes' share of each."""
+    clock = sm_clock_mhz * 1e6
+    popc_rate = POPC_PER_CLOCK_SM * SMS * clock
+    int32_rate = INT32_PER_CLOCK_SM * SMS * clock
+    qnt = q * n * tables
+    nbytes = hamming_bytes(q, n, tables, words)
+    if words % 8 == 0:
+        csa = ((qnt * words // 2, popc_rate), (qnt * (19 * words // 8 + 1), int32_rate))
+    else:
+        csa = ((qnt * words, popc_rate), (qnt * (2 * words + 1), int32_rate))
+    routes = {
+        "popc_per_word": bound_ms(nbytes, (qnt * words, popc_rate),
+                                  (qnt * (2 * words + 1), int32_rate)),
+        "carry_save": bound_ms(nbytes, *csa),
+        "int8_tensor_core": bound_ms(nbytes, (2 * qnt * words * 32, INT8_TENSOR_OPS_PER_S),
+                                     (3 * qnt, int32_rate)),
+    }
+    route = min(routes, key=lambda r: routes[r][0])
+    ms, by = routes[route]
+    return {"ms": ms, "by": by, "route": route, "bytes": nbytes,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "routes": {r: v[0] for r, v in routes.items()}}
+
+
+def gather_pool_bound(n: int, d: int, b: int, k: int, table_bytes: int) -> dict:
+    """Bound of ``out[b] = sum_k w[b, k] * table[nbrs[b, k]]``: the table,
+    ids and weights read once, the f32 output written once; a multiply-add
+    per gathered element at the float32 rate."""
+    nbytes = n * d * table_bytes + b * k * 4 * 2 + b * d * 4
+    ms, by = bound_ms(nbytes, (2 * b * k * d, FP32_OPS_PER_S))
+    return {"ms": ms, "by": by, "bytes": nbytes, "flops": 2 * b * k * d}

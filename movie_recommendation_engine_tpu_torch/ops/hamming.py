@@ -4,13 +4,15 @@ Port of ``movie_recommendation_engine_tpu/ops/pallas/hamming.py``:
 ``dist[q, n] = min_t sum_w popcount(qsig[q, t*W + w] ^ sigs[n, t*W + w])``.
 Signatures are [rows, T*W] int32 holding the uint32 bit patterns of the JAX
 package (torch has little uint32 support; bit 31 becomes the sign). On a CUDA
-tensor ``hamming_distance`` launches ``csrc/hamming.cu``; on a CPU tensor it
-runs ``hamming_distance_plain``.
+tensor ``hamming_distance`` launches ``csrc/hamming.cu`` with the tiling
+``plan`` picks from Q (queries per block) and the signatures' alignment (16-byte
+or scalar loads); on a CPU tensor it runs ``hamming_distance_plain``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -18,10 +20,46 @@ from . import _build
 
 # Kernel launches by this process (the wrapper adds one per launch).
 LAUNCHES = 0
-_MAX_SMEM = 227 * 1024
-_TQ, _TN = 16, 128   # the kernel's output tile (csrc/hamming.cu)
+_MAX_SMEM = 227 * 1024     # dynamic shared memory a block may use on an H100
+_MAX_GRID_Y = 65535
+_ROWS = 32                 # corpus rows per block (csrc/hamming.cu kRows)
+_VEC_WORDS = (4, 8, 16)    # words per table read as 16-byte loads
+_QUERY_TILES = (1, 4, 8, 16, 32)
 
 _fn = None
+
+
+class Plan(NamedTuple):
+    """The kernel's tiling for one call (see csrc/hamming.cu)."""
+    qt: int             # queries per block
+    wc: int             # words per table read as uint4, or 0 for scalar reads
+    grid: tuple[int, int]
+    smem: int           # bytes of dynamic shared memory
+
+
+def plan(nq: int, ns: int, num_tables: int, words: int,
+         aligned: bool = True) -> Plan:
+    """Tiling for Q queries against N rows of T tables of W words. The query
+    tile is the smallest of 1, 4, 8, 16, 32 that holds Q (32 above that), so
+    Q = 1 does 1/64 of the work of Q = 64. Raises ValueError, naming the
+    limit, on what the kernel does not take."""
+    if num_tables < 1 or words < 1:
+        raise ValueError(f"need T >= 1 and W >= 1, got T={num_tables}, W={words}")
+    qt = next((t for t in _QUERY_TILES if t >= nq), _QUERY_TILES[-1])
+    wc = words if aligned and words in _VEC_WORDS else 0
+    grid_y = -(-nq // qt)
+    smem = 4 * qt * (num_tables * words + _ROWS)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"T*W={num_tables * words} words (T={num_tables}, W={words}) need "
+            f"{smem} bytes of shared memory per block, above the kernel's "
+            f"limit of {_MAX_SMEM}")
+    if grid_y > _MAX_GRID_Y:
+        raise ValueError(f"Q={nq} needs {grid_y} query tiles of {qt}, above the "
+                         f"grid's limit of {_MAX_GRID_Y}")
+    if ns >= 2**31 or nq >= 2**31:
+        raise ValueError(f"Q={nq}, N={ns}: the kernel takes fewer than 2**31 rows")
+    return Plan(qt, wc, (-(-ns // _ROWS), grid_y), smem)
 
 
 def _kernel():
@@ -30,8 +68,7 @@ def _kernel():
         lib = _build.library("hamming")
         fn = lib.hamming_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+                       *[ctypes.c_int] * 7, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.hamming_error_string.argtypes = [ctypes.c_int]
         lib.hamming_error_string.restype = ctypes.c_char_p
@@ -85,19 +122,18 @@ def hamming_distance(qsig: torch.Tensor, sigs: torch.Tensor, num_tables: int,
         raise ValueError(f"unsupported device {qsig.device}")
     if not (qsig.is_contiguous() and sigs.is_contiguous()):
         raise ValueError("hamming_distance needs contiguous signatures")
-    if 4 * (_TQ * tw + _TN * (words + 1)) > _MAX_SMEM:
-        raise ValueError(f"T*W={tw} words exceed the kernel's shared memory")
     nq, ns = qsig.shape[0], sigs.shape[0]
-    if (nq + _TQ - 1) // _TQ > 65535:
-        raise ValueError(f"Q={nq} exceeds the kernel's grid")
-    out = torch.empty((nq, ns), dtype=torch.int32, device=qsig.device)
+    dev = qsig.device
+    p = plan(nq, ns, num_tables, words,
+             aligned=qsig.data_ptr() % 16 == 0 and sigs.data_ptr() % 16 == 0)
+    out = torch.empty((nq, ns), dtype=torch.int32, device=dev)
     if nq == 0 or ns == 0:
         return out
     fn, err_str = _kernel()
-    with torch.cuda.device(qsig.device):
-        stream = torch.cuda.current_stream(qsig.device).cuda_stream
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(qsig.data_ptr(), sigs.data_ptr(), out.data_ptr(), nq, ns,
-                num_tables, words, stream)
+                num_tables, words, p.qt, p.wc, p.smem, stream)
     if rc != 0:
         raise RuntimeError(f"hamming kernel launch failed: "
                            f"{err_str(rc).decode()} (cudaError {rc})")

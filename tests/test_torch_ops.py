@@ -175,14 +175,30 @@ def test_gather_pool_kernel_unaligned_table(cuda):
                                atol=1e-4, rtol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("q,n,t,w", HAMMING_CASES + [(64, 4000, 16, 8),
-                                                     (1, 4000, 16, 8),
-                                                     (33, 129, 3, 5)])
-def test_hamming_kernel_matches_plain(cuda, q, n, t, w):
-    rng = np.random.default_rng(q + n)
+# Every server batch bucket at the serving shape; off-tile Q and N crossed
+# with (T, W) on the vector path (W = 8, 1 and 2 rows per warp), the scalar
+# path (W = 1, 5; T = 1 and 3 lanes of 4) and the other vector widths.
+HAMMING_BUCKETS = [(q, 4000, 16, 8) for q in (1, 2, 4, 8, 16, 32, 64)]
+HAMMING_OFF_TILE = [(q, n, t, w) for q in (3, 17, 65, 200) for n in (1, 37, 129, 4001)
+                    for t, w in ((1, 1), (3, 5), (16, 8), (32, 8))]
+CUDA_HAMMING_CASES = (HAMMING_CASES + HAMMING_BUCKETS + HAMMING_OFF_TILE
+                      + [(33, 129, 3, 5), (20, 300, 8, 4), (5, 77, 4, 16), (2, 50, 40, 8),
+                         # above 48 KB of shared memory: scalar and vector paths
+                         (40, 77, 4, 100), (33, 50, 96, 16)])
+
+
+def _cuda_sigs(cuda, seed, q, n, t, w):
+    rng = np.random.default_rng(seed)
     qsig = torch.from_numpy(_random_sigs(rng, q, t * w).view(np.int32)).to(cuda)
     sigs = torch.from_numpy(_random_sigs(rng, n, t * w).view(np.int32)).to(cuda)
+    sigs[: min(q, n)] = qsig[: min(q, n)]      # zero distances on a diagonal
+    return qsig, sigs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,n,t,w", CUDA_HAMMING_CASES)
+def test_hamming_kernel_matches_plain(cuda, q, n, t, w):
+    qsig, sigs = _cuda_sigs(cuda, q + n, q, n, t, w)
     before = t_hamming.LAUNCHES
     got = t_hamming.hamming_distance(qsig, sigs, t, w)
     torch.cuda.synchronize()
@@ -192,3 +208,64 @@ def test_hamming_kernel_matches_plain(cuda, q, n, t, w):
     d, i = t_hamming.hamming_topk(qsig, sigs, min(10, n), t, w)
     d_ref, i_ref = t_hamming.smallest_k(ref, min(10, n))
     assert torch.equal(d, d_ref) and torch.equal(i, i_ref)
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_unaligned_signatures(cuda):
+    """Views that are not 16-byte aligned take the scalar path."""
+    qsig, sigs = _cuda_sigs(cuda, 4, 9, 301, 16, 8)
+    flat = torch.cat([torch.zeros(1, dtype=torch.int32, device=cuda), sigs.reshape(-1)])
+    view = flat[1:].view(301, 128)
+    assert view.data_ptr() % 16 != 0
+    got = t_hamming.hamming_distance(qsig, view, 16, 8)
+    assert torch.equal(got, t_hamming.hamming_distance_plain(qsig, sigs, 16, 8))
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_raises_beyond_its_limits(cuda):
+    qsig = torch.zeros((16, 20000), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_hamming.hamming_distance(qsig, qsig, 1, 20000)
+    with pytest.raises(ValueError, match="contiguous"):
+        t_hamming.hamming_distance(qsig[:, ::2], qsig[:, ::2], 1, 10000)
+
+
+# ---------------------------------------------------------------------------
+# The kernel's tiling (pure arithmetic, checked on the CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("q", [1, 2, 4, 8, 16, 32, 64])
+def test_hamming_plan_covers_every_bucket(q):
+    p = t_hamming.plan(q, 4000, 16, 8)
+    assert p.grid[0] * 32 >= 4000 and p.grid[1] * p.qt >= q
+    assert p.grid[1] * p.qt < q + p.qt          # no whole tile of padding
+    assert p.wc == 8 and p.smem <= 48 * 1024
+
+
+def test_hamming_plan_work_scales_with_q():
+    """Padded query slots (grid rows x tile) grow with Q: Q = 1 computes one
+    query, Q = 64 sixty-four."""
+    slots = {}
+    for q in (1, 4, 16, 64):
+        p = t_hamming.plan(q, 4000, 16, 8)
+        slots[q] = p.grid[1] * p.qt
+    assert slots == {1: 1, 4: 4, 16: 16, 64: 64}
+
+
+@pytest.mark.parametrize("t,w,aligned,wc", [
+    (1, 1, True, 0), (3, 5, True, 0), (16, 8, False, 0), (32, 8, True, 8),
+    (64, 4, True, 4), (2, 16, True, 16), (1, 256, True, 0)])
+def test_hamming_plan_paths(t, w, aligned, wc):
+    p = t_hamming.plan(17, 4001, t, w, aligned=aligned)
+    assert p.wc == wc and p.grid == (126, 1) and p.qt == 32
+    assert p.smem == 4 * 32 * (t * w + 32)
+
+
+def test_hamming_plan_raises_beyond_the_kernel_limits():
+    t_hamming.plan(64, 4000, 32, 8)                       # T*W = 256 words is taken
+    with pytest.raises(ValueError, match="shared memory"):
+        t_hamming.plan(64, 4000, 1, 20000)
+    with pytest.raises(ValueError, match="grid"):
+        t_hamming.plan(32 * 65536, 10, 16, 8)
+    with pytest.raises(ValueError, match="T >= 1"):
+        t_hamming.plan(4, 10, 0, 8)
