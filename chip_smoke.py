@@ -7,14 +7,15 @@ Phases, one JSON line each:
 1. device  — the card (``nvidia-smi`` name and power limit; the raw line too)
    and its maximum SM clock (``clocks.max.sm``), which the bounds use.
 2. kernels — builds both hand-written CUDA kernels from ``ops/csrc`` with
-   ``nvcc`` (in parallel), holds each against its plain PyTorch version at the
-   serving shapes and at edge shapes (``gather_pool`` to 1e-4 abs, Hamming
-   exactly), and times kernel, plain version and a PyTorch library call.
-   Times are device times: CUDA events around calls that run back to back on
-   the card behind a spin that outlasts the host's enqueue, cross-checked
-   against the profiler's device time per call; the host's cost per call
-   (us) is reported beside them (``cuda_ms``, ``timed``). Hamming is timed at
-   every server batch bucket (Q = 1..64). Bounds come from ``core/roofline.py``.
+   ``nvcc`` (in parallel) and holds each against its plain PyTorch version
+   at the serving shapes and at edge shapes (``gather_pool`` to 1e-4 abs on
+   each of its routes, the routes bitwise equal to each other; Hamming
+   exactly), and times Hamming, its plain version and a PyTorch library call
+   at every server batch bucket (Q = 1..64). Times are device times: CUDA
+   events around calls that run back to back on the card behind a spin that
+   outlasts the host's enqueue, cross-checked against the profiler's device
+   time per call; the host's cost per call (us) is reported beside them
+   (``cuda_ms``, ``timed``). Bounds come from ``core/roofline.py``.
 3. serve   — the main path: ``api.Engine`` on ``cuda`` at the default model
    width (synthetic 4000 movies / 12000 users / 400k ratings, features 128,
    hidden 256, embed 128, K = 50, 100 walks of length 2, LSH 256 bits x 16
@@ -27,8 +28,15 @@ Phases, one JSON line each:
    that ``gather_impl=auto`` picks), request latency, LSH recall@10 and a
    ``torch.profiler`` split of host and device time for an embedding pass
    and for one search of the largest and smallest batch bucket.
-4. serve_default — the default config (dense pool matrices, exact search).
-5. check   — the outputs are finite, unit-norm and of the expected shape, and
+4. gather_pool — both ``gather_pool`` routes timed (as in 2) on (a) the
+   serve phase's own layer-0 walk table, (b) uniform ids at N = B = 4000,
+   (c) uniform ids at N = B = 59,392, each beside its bound, its share of it
+   and an L2-traffic estimate; ``plan``'s pick at (a) must be the faster;
+   the plain version and ``embedding_bag`` at (a); the resident route at
+   K = 1, on an 8-row table, both, and without bank conflicts (where its
+   time goes); how the walk table's ids repeat.
+5. serve_default — the default config (dense pool matrices, exact search).
+6. check   — the outputs are finite, unit-norm and of the expected shape, and
    the CUDA engine agrees with the CPU engine (plain versions) on a small
    input given the same params and tables.
 
@@ -165,7 +173,34 @@ def pool_inputs(gen, n, d, b, k, limit, dtype, dev):
     return table, nbrs, w
 
 
-def kernel_phase(dev, sm_clock_mhz: float) -> list[dict]:
+def check_pool_routes(pool, table, nbrs, w, limit, what: str) -> float:
+    """Every route ``plan`` lets run (and its own pick) against the plain
+    version to 1e-4; the routes bitwise equal to each other; a route that
+    ``plan`` refuses raises ValueError. Returns the largest error."""
+    ref = pool.gather_pool_plain(table, nbrs, w, limit)
+    outs = {}
+    for route in pool.ROUTES:
+        try:
+            pool.plan(limit, table.shape[1], nbrs.shape[0], nbrs.shape[1], table.dtype,
+                      route=route, aligned=table.data_ptr() % 16 == 0)
+        except ValueError:
+            try:
+                pool.gather_pool(table, nbrs, w, limit, route=route)
+            except ValueError:
+                continue
+            check(False, f"gather_pool {what}: {route} ran where plan refuses it")
+        outs[route] = pool.gather_pool(table, nbrs, w, limit, route=route)
+    outs["plan"] = pool.gather_pool(table, nbrs, w, limit)
+    torch.cuda.synchronize()
+    err = max((o - ref).abs().max().item() for o in outs.values())
+    check(err <= 1e-4, f"gather_pool {what}: max err {err}")
+    if "resident" in outs:
+        check(torch.equal(outs["resident"], outs["direct"]),
+              f"gather_pool {what}: resident and direct routes differ")
+    return err
+
+
+def kernel_phase(dev, sm_clock_mhz: float) -> tuple[float, dict]:
     from movie_recommendation_engine_tpu_torch.core import roofline
     from movie_recommendation_engine_tpu_torch.ops import _build, hamming, pool
 
@@ -176,36 +211,27 @@ def kernel_phase(dev, sm_clock_mhz: float) -> list[dict]:
         print(f"[nvcc {name}]\n{log}", file=sys.stderr)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    # gather_pool: edge shapes, then the serving shape (N = B = 4000, K = 50,
-    # D = 256 bf16: the second layer's input; the first layer's is the same).
+    # gather_pool, every route at each shape: the scalar path (D * size not a
+    # multiple of 16 bytes), K above one warp, slices of 4, 2 and 1 chunks,
+    # a D that is not a whole number of slices, valid_limit below N, N just
+    # inside and just outside the two-chunk slice's and the resident route's
+    # limits, and the serving shape (N = B = 4000, K = 50, D = 256 bf16).
+    bf16, f32 = torch.bfloat16, torch.float32
+    two_chunk_rows = pool.max_resident_rows(256, 50, bf16, chunks=2)
+    max_rows = pool.max_resident_rows(256, 50, bf16)
     gather_err = 0.0
-    for n, d, b, k, limit, dtype in [(96, 128, 19, 11, 96, torch.float32),
-                                     (37, 100, 7, 6, 30, torch.bfloat16),
-                                     (29, 37, 5, 70, 29, torch.float32),
-                                     (4000, 256, 4000, 50, 4000, torch.bfloat16)]:
+    for n, d, b, k, limit, dtype in [(96, 128, 19, 11, 96, f32), (37, 100, 7, 6, 30, bf16),
+                                     (29, 37, 5, 70, 29, f32), (500, 64, 300, 70, 450, bf16),
+                                     (3980, 200, 997, 50, 3980, bf16),
+                                     (3980, 256, 1201, 50, 3000, f32),
+                                     (two_chunk_rows, 256, 700, 50, two_chunk_rows, bf16),
+                                     (two_chunk_rows + 1, 256, 700, 50, two_chunk_rows + 1, bf16),
+                                     (max_rows, 256, 600, 50, max_rows, bf16),
+                                     (max_rows + 1, 256, 600, 50, max_rows + 1, bf16),
+                                     (4000, 256, 4000, 50, 4000, bf16)]:
         table, nbrs, w = pool_inputs(gen, n, d, b, k, limit, dtype, dev)
-        got = pool.gather_pool(table, nbrs, w, limit)
-        ref = pool.gather_pool_plain(table, nbrs, w, limit)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        check(err <= 1e-4, f"gather_pool {n}x{d} B={b} K={k} {dtype}: max err {err}")
-        gather_err = max(gather_err, err)
-    # Serving-shape inputs as the main path gives them: ids in [0, N) or the
-    # sentinel N, weights normalized over the valid slots.
-    n, d, b, k = 4000, 256, 4000, 50
-    table = torch.randn((n, d), generator=gen, device=dev).bfloat16()
-    nbrs = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
-    nbrs[:, 40:] = n
-    w = torch.rand((b, k), generator=gen, device=dev) * (nbrs < n)
-    w = w / w.sum(1, keepdim=True)
-    ids, wm = nbrs.clamp(max=n - 1).long(), w.bfloat16()
-    g = timed(lambda: pool.gather_pool(table, nbrs, w, n))
-    g_plain = cuda_ms(lambda: pool.gather_pool_plain(table, nbrs, w, n))
-    g_lib = timed(lambda: torch.nn.functional.embedding_bag(
-        ids, table, per_sample_weights=wm, mode="sum"))
-    g_bound = roofline.gather_pool_bound(n, d, b, k, table_bytes=2)
-    # The kernel reads all K neighbour rows (sentinels clamp to row N - 1).
-    g_gathered = b * k * d * 2
+        gather_err = max(gather_err, check_pool_routes(
+            pool, table, nbrs, w, limit, f"{n}x{d} B={b} K={k} limit={limit} {dtype}"))
 
     # Hamming: edge shapes (ragged Q and N, scalar and vector paths, 32
     # tables), then the serving shape: Q = 64, the largest batch bucket;
@@ -251,14 +277,7 @@ def kernel_phase(dev, sm_clock_mhz: float) -> list[dict]:
     h = by_q[64]
 
     emit("kernels", build_s=build_s, sm_clock_mhz=sm_clock_mhz,
-         gather_pool={"shape": "table[4000,256] bf16, nbrs/weights[4000,50]",
-                      "kernel": g, "plain": g_plain, "library": g_lib,
-                      "bound": g_bound, "bound_share": g_bound["ms"] / g["ms"],
-                      "gathered_bytes": g_gathered,
-                      "gathered_tb_per_s": g_gathered / g["ms"] / 1e9,
-                      "gathered_tb_per_s_profiler": (g_gathered / g["profiler_ms"] / 1e9
-                                                     if g["profiler_ms"] else None),
-                      "max_abs_err": gather_err},
+         gather_pool={"max_abs_err": gather_err, "routes_bitwise_equal": True},
          hamming={"shape": "qsig[Q,128] sigs[4000,128] int32 (T=16, W=8)",
                   "kernel_by_q": by_q,
                   "plain": h_plain, "library": h_lib,
@@ -267,23 +286,139 @@ def kernel_phase(dev, sm_clock_mhz: float) -> list[dict]:
                   "carry_save_share_q64": h_bound["routes"]["carry_save"] / h["ms"],
                   "bound_share_q1": h_bound_q1["ms"] / by_q[1]["ms"],
                   "max_abs_err": ham_err})
-    return [
-        {"name": "gather_pool", "route": "cuda",
-         "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool.cu",
-         "replaces": "movie_recommendation_engine_tpu/ops/pallas/pool.py:141",
-         "launches": None, "max_abs_err": gather_err, "ms": g["ms"],
-         "profiler_ms": g["profiler_ms"], "host_us": g["host_us"],
-         "plain_ms": g_plain["ms"], "bound_ms": g_bound["ms"], "bound_by": g_bound["by"],
-         "library_ms": g_lib["ms"]},
-        {"name": "hamming_distance", "route": "cuda",
-         "source": "movie_recommendation_engine_tpu_torch/ops/csrc/hamming.cu",
-         "replaces": "movie_recommendation_engine_tpu/ops/pallas/hamming.py:51",
-         "launches": None, "max_abs_err": ham_err, "ms": h["ms"],
-         "profiler_ms": h["profiler_ms"], "host_us": h["host_us"],
-         "ms_q1": by_q[1]["ms"], "profiler_ms_q1": by_q[1]["profiler_ms"],
-         "plain_ms": h_plain["ms"], "bound_ms": h_bound["ms"], "bound_by": h_bound["by"],
-         "library_ms": h_lib["ms"]},
-    ]
+    return gather_err, {
+        "name": "hamming_distance", "route": "cuda",
+        "source": "movie_recommendation_engine_tpu_torch/ops/csrc/hamming.cu",
+        "replaces": "movie_recommendation_engine_tpu/ops/pallas/hamming.py:51",
+        "launches": None, "max_abs_err": ham_err, "ms": h["ms"],
+        "profiler_ms": h["profiler_ms"], "host_us": h["host_us"],
+        "ms_q1": by_q[1]["ms"], "profiler_ms_q1": by_q[1]["profiler_ms"],
+        "plain_ms": h_plain["ms"], "bound_ms": h_bound["ms"], "bound_by": h_bound["by"],
+        "library_ms": h_lib["ms"]}
+
+
+# ---------------------------------------------------------------------------
+# gather-pool timing (after serve: input (a) is the serve phase's walk table)
+# ---------------------------------------------------------------------------
+
+def table_reuse(nbrs: np.ndarray, limit: int) -> dict:
+    """How the walk table's ids repeat: valid and masked slot shares, the
+    share of valid slots that the most frequent 256 / 1024 ids take, and per
+    block of 8..256 consecutive output rows the valid slots per distinct id
+    (the reuse a block could get from rows it has already read)."""
+    valid = (nbrs >= 0) & (nbrs < limit)
+    counts = np.sort(np.bincount(nbrs[valid], minlength=limit))[::-1]
+    out = {"valid_share": float(valid.mean()),
+           "masked_ids": sorted(int(x) for x in np.unique(nbrs[~valid]))[:4],
+           "top256_share": float(counts[:256].sum() / counts.sum()),
+           "top1024_share": float(counts[:1024].sum() / counts.sum())}
+    for rows in (8, 32, 64, 256):
+        distinct = [np.unique(blk[ok]).size for blk, ok in
+                    zip(np.array_split(nbrs, range(rows, len(nbrs), rows)),
+                        np.array_split(valid, range(rows, len(nbrs), rows)))]
+        out[f"slots_per_distinct_{rows}"] = float(valid.sum() / sum(distinct))
+        out[f"distinct_rows_{rows}"] = float(np.mean(distinct))
+    return out
+
+
+def gather_pool_phase(dev, walk, table_rows: int, limit: int, width: int,
+                      edge_err: float) -> dict:
+    """Each route of ``gather_pool`` timed on three inputs, beside the bound
+    and an L2-traffic estimate: (a) the serve phase's layer-0 walk table
+    with its weights normalized as ``importance_pool`` does, over a random
+    [table_rows, width] bf16 table, (b) uniform ids with the sentinel in the
+    last 10 of 50 slots at N = B = 4000, (c) uniform ids at the at-scale
+    corpus, N = B = 59,392. Each is checked against the plain version and
+    across routes; ``plan``'s pick at (a) must be the faster route. Four
+    diagnostic inputs split the resident route's time (see below). Returns
+    the ``kernels`` entry: the route ``plan`` picks at (a); its error is the
+    largest here or at the edge shapes (``edge_err``)."""
+    from movie_recommendation_engine_tpu_torch.core import roofline
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    nb_a, w_a = walk
+    valid = nb_a < limit
+    w_a = torch.where(valid, w_a, 0.0)
+    wsum = w_a.sum(1, keepdim=True)
+    w_a = torch.where(wsum > 0, w_a / wsum.clamp_min(1e-12), 0.0).contiguous()
+    table_a = torch.randn((table_rows, width), generator=gen, device=dev).bfloat16()
+
+    n, d, b, k = 4000, 256, 4000, 50
+    table_b = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    nb_b = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    nb_b[:, 40:] = n
+    w_b = torch.rand((b, k), generator=gen, device=dev) * (nb_b < n)
+    w_b = w_b / w_b.sum(1, keepdim=True)
+
+    n = b = 59392
+    table_c = torch.randn((n, d), generator=gen, device=dev).bfloat16()
+    nb_c = torch.randint(0, n, (b, k), generator=gen, device=dev, dtype=torch.int32)
+    w_c = torch.rand((b, k), generator=gen, device=dev)
+
+    inputs = {"a_serving_walk_table": (table_a, nb_a.contiguous(), w_a, limit),
+              "b_uniform_4000": (table_b, nb_b, w_b, 4000),
+              "c_uniform_59392": (table_c, nb_c, w_c, 59392)}
+    readings, err = {}, edge_err
+    for name, (table, nbrs, w, lim) in inputs.items():
+        err = max(err, check_pool_routes(pool, table, nbrs, w, lim, name))
+        bb, kk = nbrs.shape
+        dd = table.shape[1]
+        bound = roofline.gather_pool_bound(table.shape[0], dd, bb, kk, table_bytes=2)
+        r = {"shape": f"table[{table.shape[0]},{dd}] bf16, nbrs/weights[{bb},{kk}], "
+                      f"limit {lim}",
+             "plan": pool.plan(lim, dd, bb, kk, table.dtype)._asdict(), "bound": bound}
+        for route in pool.ROUTES:
+            try:
+                p = pool.plan(lim, dd, bb, kk, table.dtype, route=route)
+            except ValueError as e:
+                r[route] = {"runs": False, "why": str(e)}
+                continue
+            t = timed(lambda: pool.gather_pool(table, nbrs, w, lim, route=route))
+            l2 = roofline.gather_pool_l2_bytes(route, lim, dd, bb, kk, 2, p)
+            r[route] = {**t, "tiling": p._asdict(), "bound_share": bound["ms"] / t["ms"],
+                        "l2_bytes_estimate": l2, "l2_tb_per_s": l2 / t["ms"] / 1e9}
+        readings[name] = r
+    a = readings["a_serving_walk_table"]
+    picked = a["plan"]["route"]
+    faster = min(pool.ROUTES, key=lambda rt: a[rt]["ms"])
+    check(picked == faster, f"plan picks {picked} at the serving shape, but {faster} "
+                            "was faster in this run")
+    check(readings["c_uniform_59392"]["plan"]["route"] == "direct",
+          "plan does not send the 59,392-row table to the direct route")
+
+    # Where the resident route's time goes, at input (b)'s shape: K = 1 (the
+    # slice copy and the fixed costs, almost no gather), K = 1 on an 8-row
+    # table (the fixed costs alone), an 8-row table (no slice to copy), and
+    # ids that put the 4 rows of every shared-memory phase in distinct bank
+    # groups (the gather without bank conflicts).
+    rows = torch.arange(4000, device=dev, dtype=torch.int32)[:, None]
+    free = 4 * torch.randint(0, 1000, (4000, 50), generator=gen, device=dev,
+                             dtype=torch.int32) + rows % 4
+    diag_inputs = {"k1": (nb_b[:, :1].contiguous(), w_b[:, :1].contiguous(), 4000),
+                   "k1_rows8": ((nb_b[:, :1] % 8).contiguous(), w_b[:, :1].contiguous(), 8),
+                   "rows8": (nb_b % 8, w_b, 8),
+                   "conflict_free": (free.contiguous(), w_b, 4000)}
+    diagnostics = {}
+    for name, (nbrs, w, lim) in diag_inputs.items():
+        err = max(err, check_pool_routes(pool, table_b, nbrs, w, lim, f"diagnostic {name}"))
+        diagnostics[name] = {rt: cuda_ms(lambda: pool.gather_pool(table_b, nbrs, w, lim, route=rt))
+                             for rt in pool.ROUTES}
+    g = a[picked]
+    plain = cuda_ms(lambda: pool.gather_pool_plain(table_a, nb_a, w_a, limit))
+    ids, wm = nb_a.clamp(max=limit - 1).long(), w_a.bfloat16()
+    lib = timed(lambda: torch.nn.functional.embedding_bag(
+        ids, table_a, per_sample_weights=wm, mode="sum"))
+    emit("gather_pool", readings=readings, plan_route_at_a=picked, faster_route_at_a=faster,
+         plain_a=plain, library_a=lib, resident_diagnostics=diagnostics,
+         walk_table=table_reuse(nb_a.cpu().numpy(), limit), max_abs_err=err)
+    return {"name": "gather_pool", "route": "cuda",
+            "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool.cu",
+            "replaces": "movie_recommendation_engine_tpu/ops/pallas/pool.py:141",
+            "plan_route": picked, "launches": None, "max_abs_err": err, "ms": g["ms"],
+            "profiler_ms": g["profiler_ms"], "host_us": g["host_us"],
+            "plain_ms": plain["ms"], "bound_ms": a["bound"]["ms"], "bound_by": a["bound"]["by"],
+            "library_ms": lib["ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -361,7 +496,7 @@ def check_embeddings(emb: np.ndarray, shape, what: str) -> None:
     check(bool(np.allclose(norms, 1.0, atol=1e-2)), f"{what}: norms {norms.min()}..{norms.max()}")
 
 
-def serve_phase(dev) -> dict:
+def serve_phase(dev) -> tuple[dict, tuple]:
     from movie_recommendation_engine_tpu_torch import api, default_config
     from movie_recommendation_engine_tpu_torch.ops import hamming, pool
     from movie_recommendation_engine_tpu_torch.retrieval.exact import ExactIndex
@@ -435,7 +570,10 @@ def serve_phase(dev) -> dict:
            "profiles": profiles,
            "num_movies": eng.data.num_movies, "num_edges": eng.trainer.csr.num_edges}
     emit("serve", **out)
-    return launches
+    # Layer 0's walk table and the shape of the table it pools, for the
+    # gather-pool timing.
+    return launches, (eng.trainer.nbr_tables[0], eng.trainer.table_rows,
+                      eng.trainer.valid_limit, cfg.model.hidden_dim)
 
 
 def serve_default_phase(dev) -> None:
@@ -510,8 +648,9 @@ def main() -> int:
     emit("device", nvidia_smi=smi, sm_clock_max_mhz=float(clock), torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
-    kernels = kernel_phase(dev, float(clock))
-    launches = serve_phase(dev)
+    gather_err, ham = kernel_phase(dev, float(clock))
+    launches, serving = serve_phase(dev)
+    kernels = [gather_pool_phase(dev, *serving, gather_err), ham]
     for k in kernels:
         k["launches"] = launches[k["name"]]
     serve_default_phase(dev)

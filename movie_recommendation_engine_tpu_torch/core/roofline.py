@@ -3,7 +3,8 @@
 A bound is the larger of the bytes the function must move (each input read
 once, each output written once) over the memory rate and, for each kind of
 operation, its count over the card's rate for that kind. ``chip_smoke.py``
-prints them beside the measured times. Pure arithmetic, no device needed.
+prints them beside the measured times, with an estimate of the gather-pool
+routes' L2 traffic. Pure arithmetic, no device needed.
 
 Rates: NVIDIA's H100 SXM data sheet (3.35 TB/s HBM3, 67 TFLOP/s float32
 outside the tensor cores, 1,979 TOP/s int8 dense) and the CUDA C++
@@ -83,3 +84,20 @@ def gather_pool_bound(n: int, d: int, b: int, k: int, table_bytes: int) -> dict:
     nbytes = n * d * table_bytes + b * k * 4 * 2 + b * d * 4
     ms, by = bound_ms(nbytes, (2 * b * k * d, FP32_OPS_PER_S))
     return {"ms": ms, "by": by, "bytes": nbytes, "flops": 2 * b * k * d}
+
+
+def gather_pool_l2_bytes(route: str, n: int, d: int, b: int, k: int, table_bytes: int,
+                         plan=None) -> int:
+    """Estimated bytes a gather-pool call moves through L2 (a diagnostic
+    beside ``gather_pool_bound``, which counts each byte once). ``n`` is the
+    rows the ids can reach. ``direct`` reads every gathered row segment (all
+    B * K slots: masked ones read their clamped row too) and the ids and
+    weights once; ``resident`` reads the reachable table once per row group
+    (``plan.groups``) and the ids and weights once per column slice
+    (``plan.slices``). Both write the f32 output once."""
+    pairs, out = b * k * 8, b * d * 4
+    if route == "direct":
+        return b * k * d * table_bytes + pairs + out
+    if route == "resident":
+        return plan.groups * n * d * table_bytes + plan.slices * pairs + out
+    raise ValueError(f"unknown gather_pool route {route!r}")

@@ -49,3 +49,25 @@ def test_gather_pool_bound_is_bytes_at_the_serving_shape():
     b = roofline.gather_pool_bound(4000, 256, 4000, 50, table_bytes=2)
     assert b["by"] == "bytes" and b["bytes"] == 7_744_000
     assert b["ms"] == pytest.approx(7_744_000 / 3.35e12 * 1e3)
+
+
+def test_gather_pool_l2_bytes_at_the_serving_shape():
+    import torch
+
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    n = b = 3980
+    pairs, out = b * 50 * 8, b * 256 * 4
+    # direct: every one of the B * K gathered 512-byte row segments.
+    direct = roofline.gather_pool_l2_bytes("direct", n, 256, b, 50, 2)
+    assert direct == b * 50 * 512 + pairs + out == 107_555_520
+    # resident: the table once per row group (8), ids and weights once per
+    # slice (16).
+    p = pool.plan(n, 256, b, 50, torch.bfloat16, route="resident")
+    resident = roofline.gather_pool_l2_bytes("resident", n, 256, b, 50, 2, p)
+    assert (p.groups, p.slices) == (8, 16)
+    assert resident == 8 * n * 512 + 16 * pairs + out == 45_849_600
+    # Both move at least what the bound counts.
+    assert min(direct, resident) >= roofline.gather_pool_bound(n, 256, b, 50, 2)["bytes"]
+    with pytest.raises(ValueError):
+        roofline.gather_pool_l2_bytes("fast", n, 256, b, 50, 2)

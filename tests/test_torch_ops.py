@@ -161,6 +161,60 @@ def test_gather_pool_kernel_matches_plain(cuda, n, d, b, k, limit, dtype):
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
 
 
+_BF16_ROWS_2CH = t_pool.max_resident_rows(256, 50, torch.bfloat16, chunks=2)
+_BF16_ROWS_MAX = t_pool.max_resident_rows(256, 50, torch.bfloat16)
+
+# Shapes the resident route takes: the serving shape in bf16 and f32, slices
+# of 4, 2 and 1 chunks, K = 70, a D that is not a whole number of slices,
+# valid_limit below N, and N at and just past the two-chunk slice's limit
+# and at the route's own limit.
+RESIDENT_CASES = [
+    (3980, 256, 3980, 50, 3980, "bfloat16"),
+    (3980, 256, 3980, 50, 3980, "float32"),
+    (500, 64, 300, 70, 450, "bfloat16"),
+    (3980, 200, 997, 50, 3980, "bfloat16"),
+    (4000, 256, 777, 50, 3000, "float32"),
+    (_BF16_ROWS_2CH, 256, 700, 50, _BF16_ROWS_2CH, "bfloat16"),
+    (_BF16_ROWS_2CH + 1, 256, 700, 50, _BF16_ROWS_2CH + 1, "bfloat16"),
+    (_BF16_ROWS_MAX, 256, 600, 50, _BF16_ROWS_MAX, "bfloat16"),
+    (96, 128, 19, 11, 96, "float32"),
+]
+
+
+def _cuda_pool_inputs(cuda, seed, n, d, b, k, limit, dtype):
+    table, nbrs, w = _pool_inputs(seed, n, d, b, k, limit)
+    return (torch.from_numpy(table).to(cuda, getattr(torch, dtype)),
+            torch.from_numpy(nbrs).to(cuda), torch.from_numpy(w).to(cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,k,limit,dtype", RESIDENT_CASES)
+def test_gather_pool_resident_matches_plain_and_direct(cuda, n, d, b, k, limit, dtype):
+    """The resident route within 1e-4 of the plain version, and bitwise
+    equal to the direct route (both sum over k in order with fmaf)."""
+    t, nb, ww = _cuda_pool_inputs(cuda, 3, n, d, b, k, limit, dtype)
+    assert t_pool.plan(limit, d, b, k, t.dtype, route="resident").route == "resident"
+    before = t_pool.LAUNCHES
+    res = t_pool.gather_pool(t, nb, ww, limit, route="resident")
+    direct = t_pool.gather_pool(t, nb, ww, limit, route="direct")
+    torch.cuda.synchronize()
+    assert t_pool.LAUNCHES == before + 2
+    torch.testing.assert_close(res, t_pool.gather_pool_plain(t, nb, ww, limit),
+                               atol=1e-4, rtol=0)
+    assert torch.equal(res, direct)
+
+
+@pytest.mark.cuda
+def test_gather_pool_resident_raises_where_plan_refuses(cuda):
+    t, nb, ww = _cuda_pool_inputs(cuda, 4, _BF16_ROWS_MAX + 1, 256, 64, 50,
+                                  _BF16_ROWS_MAX + 1, "bfloat16")
+    with pytest.raises(ValueError, match="shared memory"):
+        t_pool.gather_pool(t, nb, ww, _BF16_ROWS_MAX + 1, route="resident")
+    t, nb, ww = _cuda_pool_inputs(cuda, 5, 37, 100, 7, 6, 30, "bfloat16")
+    with pytest.raises(ValueError, match="16-byte"):
+        t_pool.gather_pool(t, nb, ww, 30, route="resident")
+
+
 @pytest.mark.cuda
 def test_gather_pool_kernel_unaligned_table(cuda):
     """A table view that is not 16-byte aligned takes the scalar path."""
@@ -231,8 +285,95 @@ def test_hamming_kernel_raises_beyond_its_limits(cuda):
 
 
 # ---------------------------------------------------------------------------
-# The kernel's tiling (pure arithmetic, checked on the CPU)
+# The kernels' tiling (pure arithmetic, checked on the CPU)
 # ---------------------------------------------------------------------------
+
+def test_pool_plan_at_the_serving_shape():
+    """3980 movies x 256 bf16, K = 50. ``plan`` picks ``direct``, the route
+    that was faster there on the card; forced, ``resident`` holds a
+    16-column (32-byte) slice of every row in shared memory, 16 slices x 8
+    row groups = 128 blocks of 16 warps."""
+    p = t_pool.plan(3980, 256, 3980, 50, torch.bfloat16)
+    assert p == t_pool.Plan("direct", dc=256, chunks=0, slices=1, groups=498,
+                            rows_per_group=8, warps=8, smem=8 * 50 * 8, vectorized=True)
+    p = t_pool.plan(3980, 256, 3980, 50, torch.bfloat16, route="resident")
+    assert p == t_pool.Plan("resident", dc=16, chunks=2, slices=16, groups=8,
+                            rows_per_group=512, warps=16,
+                            smem=3980 * 32 + 16 * 16 * 50 * 8, vectorized=True)
+
+
+@pytest.mark.parametrize("n,d,b,k,dtype,aligned", [
+    (59392, 256, 59392, 50, torch.bfloat16, True),   # the at-scale corpus
+    (3980, 100, 3980, 50, torch.bfloat16, True),     # 200-byte rows: scalar path
+    (3980, 256, 3980, 50, torch.bfloat16, False),    # unaligned table
+    (3980, 256, 3980, 50, torch.float32, True),      # f32 at the serving shape
+    (_BF16_ROWS_MAX, 256, 4000, 50, torch.bfloat16, True),  # resident's largest table
+])
+def test_pool_plan_picks_direct(n, d, b, k, dtype, aligned):
+    p = t_pool.plan(n, d, b, k, dtype, aligned=aligned)
+    assert p.route == "direct" and p.groups == -(-b // 8) and p.smem == 8 * k * 8
+    assert p.vectorized == (aligned and d * dtype.itemsize % 16 == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,d,b,k", [
+    (3980, 256, 3980, 50), (4000, 256, 4000, 50), (500, 64, 300, 70), (3980, 200, 997, 50),
+    (_BF16_ROWS_2CH, 256, 700, 50), (_BF16_ROWS_MAX, 256, 600, 50), (9, 8, 3, 1),
+    (2000, 1024, 64, 200)])
+def test_pool_plan_resident_tiling_fits(n, d, b, k, dtype):
+    """Shared memory within 227 KB, 4..16 warps, the slices cover D, the row
+    groups cover B without an empty group, whole passes of 32 / CH rows."""
+    try:
+        p = t_pool.plan(n, d, b, k, dtype, route="resident")
+    except ValueError as e:
+        assert "shared memory" in str(e) and n * d * dtype.itemsize > 227 * 1024
+        return
+    row = p.chunks * 16
+    assert p.smem == n * row + p.warps * (32 // p.chunks) * (((k + 1) | 3) - 1) * 8 <= 227 * 1024
+    assert 4 <= p.warps <= 16 and p.chunks in (1, 2, 4)
+    assert p.dc * dtype.itemsize == row and p.slices == -(-d * dtype.itemsize // row)
+    assert p.rows_per_group % (32 // p.chunks) == 0
+    assert p.groups * p.rows_per_group >= b > (p.groups - 1) * p.rows_per_group
+    assert p.groups * p.slices <= 132 or p.groups == 1
+
+
+def test_pool_plan_resident_limits():
+    bf16 = torch.bfloat16
+    assert t_pool.plan(_BF16_ROWS_2CH, 256, 700, 50, bf16, route="resident").chunks == 2
+    assert t_pool.plan(_BF16_ROWS_2CH + 1, 256, 700, 50, bf16, route="resident").chunks == 1
+    assert t_pool.plan(_BF16_ROWS_MAX, 256, 700, 50, bf16, route="resident").warps == 4
+    assert t_pool.max_resident_rows(256, 50, bf16) == (227 * 1024 - 4 * 32 * 50 * 8) // 16
+    assert t_pool.max_resident_rows(100, 50, bf16) == 0
+    assert t_pool.max_resident_rows(8, 50, bf16, chunks=2) == 0
+
+
+def test_pool_plan_raises_beyond_the_kernel_limits():
+    bf16 = torch.bfloat16
+    with pytest.raises(ValueError, match="shared memory"):
+        t_pool.plan(_BF16_ROWS_MAX + 1, 256, 700, 50, bf16, route="resident")
+    with pytest.raises(ValueError, match="16-byte"):
+        t_pool.plan(3980, 100, 3980, 50, bf16, route="resident")
+    t_pool.plan(10, 8, 10, t_pool.MAX_K, torch.float32)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_pool.plan(10, 8, 10, t_pool.MAX_K + 1, torch.float32)
+    with pytest.raises(ValueError, match="route"):
+        t_pool.plan(10, 8, 10, 4, bf16, route="fast")
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        t_pool.plan(10, 8, 2**26, 64, bf16)
+    with pytest.raises(TypeError):
+        t_pool.plan(10, 8, 10, 4, torch.float16)
+
+
+def test_gather_pool_route_keyword_on_the_cpu():
+    """On CPU tensors every route is the plain version; an unknown route
+    raises there too."""
+    table, nbrs, w = (torch.from_numpy(x) for x in _pool_inputs(6, 40, 16, 9, 5, 33))
+    ref = t_pool.gather_pool_plain(table, nbrs, w, 33)
+    for route in (None, "direct", "resident"):
+        assert torch.equal(t_pool.gather_pool(table, nbrs, w, 33, route=route), ref)
+    with pytest.raises(ValueError, match="route"):
+        t_pool.gather_pool(table, nbrs, w, 33, route="fast")
+
 
 @pytest.mark.parametrize("q", [1, 2, 4, 8, 16, 32, 64])
 def test_hamming_plan_covers_every_bucket(q):
