@@ -6,8 +6,9 @@ Phases, one JSON line each:
 
 1. device  — the card (``nvidia-smi`` name and power limit; the raw line too)
    and its maximum SM clock (``clocks.max.sm``), which the bounds use.
-2. kernels — builds both hand-written CUDA kernels from ``ops/csrc`` with
-   ``nvcc`` (in parallel) and holds each against its plain PyTorch version
+2. kernels — builds the three hand-written CUDA kernels from ``ops/csrc``
+   with ``nvcc`` (in parallel; the backward is checked in 6) and holds the
+   gather-pool forward and Hamming against their plain PyTorch versions
    at the serving shapes and at edge shapes (``gather_pool`` to 1e-4 abs on
    each of its routes, the routes bitwise equal to each other; Hamming
    exactly), and times Hamming, its plain version and a PyTorch library call
@@ -36,21 +37,41 @@ Phases, one JSON line each:
    K = 1, on an 8-row table, both, and without bank conflicts (where its
    time goes); how the walk table's ids repeat.
 5. serve_default — the default config (dense pool matrices, exact search).
-6. check   — the outputs are finite, unit-norm and of the expected shape, and
+6. train   — the training path at the same width (batch 512, 500 shared
+   random negatives, NCE, dropout 0.2, bf16 compute): ``Engine.fit`` for 2
+   epochs (epoch 1 adds one hard negative per query) with ``pool_impl=gather``,
+   ``gather_impl=pallas`` (each step launches the gather-pool forward and
+   backward kernels twice: layer 0 over the whole graph, the batch layer),
+   the launch counts zeroed just before and read just after; the loss is
+   finite, ``last_model`` reloads and evaluates to the same HR@k; then the
+   default (dense) config the same way. One step with the kernels and one
+   with ``gather_impl=xla`` from the same params, tables and draws (float32
+   compute) agree in loss, gradients and updated params. The backward kernel
+   is held against ``gather_pool_bwd_plain`` at the step's shapes (layer 0,
+   B = 3980; the batch layer, B = 1524 and 4596) and at edge shapes, and
+   timed (as in 2) at
+   layer 0 and B = 1524 beside its bound, the plain version and
+   ``embedding_bag``'s backward; the step's wall time, device time and busy
+   share, and examples per second.
+7. check   — the outputs are finite, unit-norm and of the expected shape, and
    the CUDA engine agrees with the CPU engine (plain versions) on a small
    input given the same params and tables.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
 exit code and no result line. It exits non-zero at once without a card.
+TF32 is off for matrix products and cuDNN (``main``), so float32 checks
+compare float32 arithmetic.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -603,6 +624,260 @@ def serve_default_phase(dev) -> None:
          metrics=eng.evaluate())
 
 
+# ---------------------------------------------------------------------------
+# 6. training
+# ---------------------------------------------------------------------------
+
+def fit_config(dev, overrides: dict, ckpt_dir: str) -> tuple:
+    """``Engine.fit`` for 2 epochs at the default width; the kernel counts
+    are zeroed just before and read just after. Checks a finite loss, the
+    curriculum's hard negative at epoch 1, and that ``last_model`` reloads
+    into a fresh trainer and evaluates (on the same tables) to the same
+    HR@k."""
+    from movie_recommendation_engine_tpu_torch import api, default_config
+    from movie_recommendation_engine_tpu_torch.ops import pool
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+
+    cfg = default_config().override({"data.source": "synthetic", "train.epochs": 2,
+                                     "paths.checkpoint_dir": ckpt_dir, **overrides})
+    eng = api.Engine(cfg, device=dev)
+    pool.LAUNCHES = pool.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = eng.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {"gather_pool": pool.LAUNCHES, "gather_pool_bwd": pool.BWD_LAUNCHES}
+    hist = out["history"]
+    check(len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist), f"train loss {hist}")
+    check([h["num_hard"] for h in hist] == [0, 1], "curriculum hard negatives")
+    tr = eng.trainer
+    last = os.path.join(ckpt_dir, "last_model")
+    check(os.path.exists(last + ".npz"), "last_model not written")
+    again = Trainer(cfg, eng.data, device=dev)
+    again.load_checkpoint(last)
+    again.set_neighborhood_tables(tr.nbr_tables)
+    ref, got = tr.evaluate(tr.val_pairs), again.evaluate(tr.val_pairs)
+    hr = {k: v for k, v in ref.items() if k.startswith("hit_rate")}
+    check(all(got[k] == v for k, v in hr.items()), f"reloaded model: {got} != {ref}")
+    check(again.epoch == 2 and again.opt_state.step == tr.opt_state.step, "reloaded state")
+    summary = {"fit_s": fit_s, "adam_steps": tr.opt_state.step, "launches": launches,
+               "history": [{k: h[k] for k in ("loss", "num_hard", "examples_per_sec",
+                                               "step_wall_seconds", "refresh_seconds",
+                                               "val_hit_rate@10")} for h in hist],
+               "reloaded_hit_rates": hr}
+    return eng, summary
+
+
+def copy_state(params, opt):
+    from movie_recommendation_engine_tpu_torch.core import tree
+    from movie_recommendation_engine_tpu_torch.train import optim
+
+    clone = lambda t: tree.map_tree(lambda x: x.detach().clone(), t)  # noqa: E731
+    return clone(params), optim.AdamState(opt.step, clone(opt.mu), clone(opt.nu))
+
+
+def step_kernel_vs_xla(tr, q, p) -> dict:
+    """One step through the kernels and one through the torch gather
+    (``gather_impl=xla``), float32 compute, from the same params, optimizer
+    state, tables and draws (negatives and keep masks). Loss within 1e-5
+    relative and gradients within 1e-4 relative norm (sums in another order,
+    the backward's atomics). Updated params: Adam divides each gradient
+    element by its own size, so an element whose gradient is within rounding
+    of zero may step apart by up to 2 lr; all are within that, and at most
+    1e-4 of them differ by more than 1e-5."""
+    from movie_recommendation_engine_tpu_torch.core import tree
+    from movie_recommendation_engine_tpu_torch.train.trainer import StepDraws
+
+    lr = tr.plateau.lr
+    dtype0, impl0 = tr.compute_dtype, tr.gather_impl
+    tr.compute_dtype = torch.float32
+    d = tr.draw_step(q, num_hard=1)
+    keep = [torch.rand((tr.table_rows, tr.cfg.model.hidden_dim), generator=tr.generator,
+                       device=q.device) < 1 - tr.cfg.model.dropout]
+    draws = [StepDraws(d.random, d.hard, keep)]
+    params0, opt0 = tr.params, tr.opt_state
+    res = {}
+    for impl in ("pallas", "xla"):
+        tr.params, tr.opt_state = copy_state(params0, opt0)
+        tr.gather_impl = impl
+        loss, grads = tr.loss_and_grads(q, p, draws[0], 1.0)
+        tr.train_steps(q[None], p[None], lr, 1.0, 1, draws=draws)
+        res[impl] = (loss.item(), tree.flatten(grads), tree.flatten(tr.params))
+    tr.params, tr.opt_state = params0, opt0
+    tr.compute_dtype, tr.gather_impl = dtype0, impl0
+    (lk, gk, pk), (lx, gx, px) = res["pallas"], res["xla"]
+    loss_rel = abs(lk - lx) / abs(lx)
+    grad_rel = max(float((gk[k] - gx[k]).norm() / gx[k].norm().clamp_min(1e-30)) for k in gk)
+    diffs = torch.cat([(pk[k] - px[k]).abs().reshape(-1) for k in pk])
+    over = int((diffs > 1e-5).sum())
+    out = {"loss_kernel": lk, "loss_xla": lx, "loss_rel_diff": loss_rel,
+           "grad_max_rel_norm_diff": grad_rel, "param_max_abs_diff": float(diffs.max()),
+           "params_over_1e-5": over, "params": int(diffs.numel()), "lr": lr}
+    check(loss_rel <= 1e-5, f"kernel vs xla step loss: {out}")
+    check(grad_rel <= 1e-4, f"kernel vs xla gradients: {out}")
+    check(float(diffs.max()) <= 2 * lr and over <= 1e-4 * diffs.numel(),
+          f"kernel vs xla updated params: {out}")
+    return out
+
+
+def bwd_inputs(gen, tr, rows, limit, dtype):
+    """A step's gather-pool inputs: the walk table's rows ``rows`` with the
+    weights masked and renormalized as ``importance_pool`` does, a random
+    [N, hidden] table of ``dtype`` and a random f32 cotangent."""
+    nbrs, w = tr.nbr_tables[0]
+    nbrs, w = nbrs[rows].contiguous(), w[rows]
+    w = torch.where(nbrs < limit, w, 0.0)
+    wsum = w.sum(1, keepdim=True)
+    w = torch.where(wsum > 0, w / wsum.clamp_min(1e-12), 0.0).contiguous()
+    table = torch.randn((tr.table_rows, tr.cfg.model.hidden_dim), generator=gen,
+                        device=nbrs.device).to(dtype)
+    g = torch.randn((nbrs.shape[0], table.shape[1]), generator=gen, device=nbrs.device)
+    return table, nbrs, w, g
+
+
+def check_bwd(pool, table, nbrs, w, limit, g, what: str) -> dict:
+    """The backward kernel against ``gather_pool_bwd_plain``: a f32 d_table
+    within 1e-4 (atomics add in a run-dependent order), a bf16 one within one
+    bf16 step of the plain version's, or within 1e-4 where the sum cancels
+    (a result so small that the two f32 sums' rounding exceeds its bf16
+    step), d_w within 1e-4."""
+    d_t, d_w = pool.gather_pool_bwd(table, nbrs, w, limit, g)
+    r_t, r_w = pool.gather_pool_bwd_plain(table, nbrs, w, limit, g)
+    torch.cuda.synchronize()
+    err_t = (d_t.float() - r_t.float()).abs()
+    err_w = float((d_w - r_w).abs().max())
+    out = {"d_w_max_abs_err": err_w, "d_table_max_abs_err": float(err_t.max())}
+    if table.dtype == torch.bfloat16:
+        step = torch.ldexp(torch.ones_like(r_t.float()),
+                           torch.frexp(r_t.float()).exponent - 8)
+        over = err_t > step
+        out["d_table_over_one_step"] = int(over.sum())
+        out["d_table_over_one_step_max_abs_ref"] = (
+            float(r_t.float().abs()[over].max()) if over.any() else 0.0)
+        check(bool((err_t[over] <= 1e-4).all()),
+              f"gather_pool_bwd {what}: bf16 d_table beyond one step: {out}")
+    else:
+        check(out["d_table_max_abs_err"] <= 1e-4, f"gather_pool_bwd {what}: {out}")
+    check(err_w <= 1e-4, f"gather_pool_bwd {what}: d_w {err_w}")
+    return out
+
+
+def train_phase(dev) -> tuple[dict, dict]:
+    """Returns the ``gather_pool_bwd`` entry of the kernels line and the
+    train path's launch counts."""
+    from movie_recommendation_engine_tpu_torch.core import roofline
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    with tempfile.TemporaryDirectory() as d_gather, tempfile.TemporaryDirectory() as d_dense:
+        eng, gather_fit = fit_config(dev, {"model.pool_impl": "gather",
+                                           "model.gather_impl": "pallas"}, d_gather)
+        launches = gather_fit["launches"]
+        steps = gather_fit["adam_steps"]
+        check(launches["gather_pool_bwd"] == 2 * steps,
+              f"gather_pool_bwd launched {launches['gather_pool_bwd']} times in {steps} steps")
+        check(launches["gather_pool"] == 2 * steps + 2 * 2,
+              f"gather_pool launched {launches['gather_pool']} times in {steps} steps "
+              "and 2 validation passes")
+        dense_eng, dense_fit = fit_config(dev, {}, d_dense)
+        check(len(dense_eng.trainer.pool_mats) == 2 and dense_fit["launches"]["gather_pool"] == 0,
+              "default config did not train on the dense rung")
+    tr = eng.trainer
+    pairs = tr._epoch_pairs(np.random.default_rng(0))
+    q = torch.as_tensor(pairs[0, :, 0], dtype=torch.int32, device=dev)
+    p = torch.as_tensor(pairs[0, :, 1], dtype=torch.int32, device=dev)
+    xcheck = step_kernel_vs_xla(tr, q, p)
+
+    # The step: wall time of single steps (host clock, synchronized), device
+    # time and busy share over a profiled window, at epoch 1 (one hard
+    # negative per query: B = 2 * 512 + 500 + 512 in the batch layer).
+    def step_ms(trainer):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_steps(q[None], p[None], trainer.plateau.lr, 1.0, 1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    steps_out = {}
+    for name, trainer in (("gather_kernels", tr), ("dense_default", dense_eng.trainer)):
+        walls = [step_ms(trainer) for _ in range(11)]
+        prof = device_profile(lambda: trainer.train_steps(q[None], p[None], trainer.plateau.lr,
+                                                          1.0, 1), calls=5)
+        med = statistics.median(walls[1:])
+        steps_out[name] = {"step_wall_ms_median": med, "step_wall_ms": walls,
+                           "examples_per_sec": q.shape[0] / med * 1e3, "profile": prof,
+                           # The profiler slows the host: busy share of the
+                           # unprofiled step as well.
+                           "busy_share_of_median_wall": (prof["device_ms"] or 0.0) / med}
+
+    # The backward kernel at the step's shapes: layer 0 (B = N = 3980) and
+    # the batch layer at epoch 0 (B = 1524) and with six hard negatives
+    # (B = 4596, batch nodes drawn over the movies).
+    gen = torch.Generator(device=dev).manual_seed(2)
+    limit, n = tr.valid_limit, tr.table_rows
+    shapes = {"layer0_b3980": torch.arange(n, device=dev),
+              "batch_b1524": torch.randint(0, n, (1524,), generator=gen, device=dev),
+              "batch_b4596": torch.randint(0, n, (4596,), generator=gen, device=dev)}
+    checks, timings, inputs = {}, {}, {}
+    for name, rows in shapes.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            table, nbrs, w, g = bwd_inputs(gen, tr, rows, limit, dtype)
+            checks[f"{name}_{str(dtype)[6:]}"] = check_bwd(pool, table, nbrs, w, limit, g, name)
+            if dtype == torch.bfloat16:
+                inputs[name] = (table, nbrs, w, g)
+    # Edge shapes: the scalar path (D not a multiple of 4) in both dtypes, K
+    # above one warp, valid_limit below N, ids outside [0, limit).
+    for n_e, d_e, b_e, k_e, lim_e, dt_e in [(96, 128, 19, 11, 96, torch.float32),
+                                            (37, 100, 7, 6, 30, torch.bfloat16),
+                                            (29, 37, 5, 70, 29, torch.float32),
+                                            (29, 37, 5, 70, 29, torch.bfloat16),
+                                            (500, 64, 300, 70, 450, torch.bfloat16)]:
+        table, nbrs, w = pool_inputs(gen, n_e, d_e, b_e, k_e, lim_e, dt_e, dev)
+        g = torch.randn((b_e, d_e), generator=gen, device=dev)
+        name = f"edge_{n_e}x{d_e}_b{b_e}_k{k_e}_{str(dt_e)[6:]}"
+        checks[name] = check_bwd(pool, table, nbrs, w, lim_e, g, name)
+    for name in ("layer0_b3980", "batch_b1524"):
+        table, nbrs, w, g = inputs[name]
+        b, k = nbrs.shape
+        valid = int(((nbrs >= 0) & (nbrs < limit)).sum())
+        bound = roofline.gather_pool_bwd_bound(n, table.shape[1], b, k, 2, valid_slots=valid)
+        t = timed(lambda: pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False))
+        plain = cuda_ms(lambda: pool.gather_pool_bwd_plain(table, nbrs, w, limit, g,
+                                                            need_weights=False), iters=10)
+        # Library yardstick: embedding_bag(mode="sum", per_sample_weights)'s
+        # backward in the table, through torch.autograd.grad (bf16, as the
+        # table: the library takes one dtype for the table and the weights).
+        tb = table.detach().clone().requires_grad_()
+        ids = nbrs.clamp(0, limit - 1).long()
+        bag = torch.nn.functional.embedding_bag(ids, tb, per_sample_weights=w.to(table.dtype),
+                                                mode="sum")
+        gb = g.to(table.dtype)
+        lib = timed(lambda: torch.autograd.grad(bag, tb, gb, retain_graph=True))
+        timings[name] = {**t, "bound": bound, "bound_share": bound["ms"] / t["ms"],
+                         "valid_slots": valid, "plain": plain, "library": lib,
+                         "shape": f"table[{n},{table.shape[1]}] bf16, nbrs/weights[{b},{k}], "
+                                  f"g[{b},{table.shape[1]}] f32"}
+    # Diagnostic: layer 0's shape with uniform ids, all valid (no hub rows):
+    # how much of the time is the hubs' contention.
+    table, nbrs, w, g = inputs["layer0_b3980"]
+    uniform = torch.randint(0, limit, nbrs.shape, generator=gen, device=dev, dtype=torch.int32)
+    timings["layer0_uniform_ids"] = cuda_ms(
+        lambda: pool.gather_pool_bwd(table, uniform, w, limit, g, need_weights=False))
+    emit("train", gather=gather_fit, dense=dense_fit, step_kernel_vs_xla=xcheck,
+         steps=steps_out, bwd_checks=checks, bwd_timings=timings,
+         tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
+               "cudnn": torch.backends.cudnn.allow_tf32})
+    a = timings["layer0_b3980"]
+    errs = [v for c in checks.values() for k, v in c.items() if k.endswith("abs_err")]
+    return {"name": "gather_pool_bwd", "route": "cuda",
+            "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool_bwd.cu",
+            "replaces": "movie_recommendation_engine_tpu/ops/pallas/pool.py:229",
+            "launches": launches["gather_pool_bwd"], "max_abs_err": max(errs),
+            "ms": a["ms"], "profiler_ms": a["profiler_ms"], "host_us": a["host_us"],
+            "ms_batch_b1524": timings["batch_b1524"]["ms"],
+            "plain_ms": a["plain"]["ms"], "bound_ms": a["bound"]["ms"],
+            "bound_by": a["bound"]["by"], "library_ms": a["library"]["ms"]}, launches
+
+
 def check_phase(dev) -> None:
     """The CUDA engine against the CPU engine (plain versions) on a small
     input with the same params and tables, float32 compute."""
@@ -639,6 +914,8 @@ def main() -> int:
     import movie_recommendation_engine_tpu_torch  # noqa: F401  (fails outside the repo)
 
     dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
@@ -650,10 +927,13 @@ def main() -> int:
          count=torch.cuda.device_count())
     gather_err, ham = kernel_phase(dev, float(clock))
     launches, serving = serve_phase(dev)
-    kernels = [gather_pool_phase(dev, *serving, gather_err), ham]
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
+    pool_entry = gather_pool_phase(dev, *serving, gather_err)
     serve_default_phase(dev)
+    bwd, train_launches = train_phase(dev)
+    pool_entry.update(launches=launches["gather_pool"],
+                      launches_train=train_launches["gather_pool"])
+    ham["launches"] = launches["hamming_distance"]
+    kernels = [pool_entry, bwd, ham]
     check_phase(dev)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,18 +1,18 @@
-"""High-level library API of the PyTorch port: the serving surface.
+"""High-level library API of the PyTorch port.
 
     from movie_recommendation_engine_tpu_torch import api, default_config
 
     cfg = default_config()
     cfg.data.source = "synthetic"
-    engine = api.load(cfg, checkpoint="checkpoints/best_model")   # on cuda
+    engine = api.train(cfg)                     # -> Engine (trained, on cuda)
+    engine = api.load(cfg, checkpoint="checkpoints/best_model")
     emb = engine.embeddings()                   # [num_movies, embed_dim]
     engine.evaluate()                           # HR@k / MRR dict
     engine.recommend(movie_id=3, k=10)          # ranked (movieId, title, score)
     engine.recommend(history=[3, 15, 40], k=10) # user-as-centroid query
     server = engine.serve()                     # BatchingRecommender
 
-Port of ``movie_recommendation_engine_tpu/api.py`` without training
-(``fit``/``train``/``save_checkpoint`` come with the training slice).
+Port of ``movie_recommendation_engine_tpu/api.py``.
 """
 
 from __future__ import annotations
@@ -40,8 +40,19 @@ class Engine:
         self.trainer = Trainer(self.cfg, self.data, self.log, device=self.device)
         self._emb: np.ndarray | None = None
 
+    # -- training / checkpoints ----------------------------------------------
+
+    def fit(self, resume_from: str | None = None) -> dict:
+        out = self.trainer.fit(resume_from=resume_from)
+        self._emb = None  # embeddings are stale after training
+        return out
+
+    def save_checkpoint(self, path: str) -> None:
+        self.trainer.save_checkpoint(path)
+
     def load_checkpoint(self, path: str) -> "Engine":
-        """A JAX-format ``.npz`` checkpoint (``core/checkpoint.py``)."""
+        """A JAX-format ``.npz`` checkpoint (``core/checkpoint.py``), written
+        by either package."""
         if path.endswith(".pt"):
             raise NotImplementedError(
                 "reference .pt checkpoints are not ported yet (ROADMAP queue 1)")
@@ -110,6 +121,14 @@ class Engine:
             max_wait_ms=self.cfg.serve.max_wait_ms,
             max_k=self.cfg.serve.max_k, device=self.device, **kw,
         )
+
+
+def train(cfg: Config | None = None, resume_from: str | None = None,
+          device=None) -> Engine:
+    """Load data per ``cfg``, train to completion, return the Engine."""
+    eng = Engine(cfg, device=device)
+    eng.fit(resume_from=resume_from)
+    return eng
 
 
 def load(cfg: Config | None = None, checkpoint: str | None = None,

@@ -3,10 +3,10 @@
     python -m movie_recommendation_engine_tpu_torch <mode> [--device cuda|cpu]
         [--set key=value ...]
 
-Ported modes: evaluate | recommend | serve (port of
-``movie_recommendation_engine_tpu/cli/main.py``). The other modes of the
-JAX CLI (train, benchmark, tune, demo, download, all) exit with an error that
-points at ROADMAP.md. ``--device`` (default ``cuda``) replaces the JAX CLI's
+Ported modes: train | evaluate | recommend | serve (port of
+``movie_recommendation_engine_tpu/cli/main.py``; ``train --resume`` resumes
+from ``last_model``). The other modes of the JAX CLI (benchmark, tune, demo,
+download, all) exit with an error that points at ROADMAP.md. ``--device`` (default ``cuda``) replaces the JAX CLI's
 ``--platform``; a run asked to use CUDA on a machine without it fails.
 
 Config overrides use dotted keys into the typed Config, e.g.
@@ -27,8 +27,8 @@ from ..config import Config, default_config
 from ..core import checkpoint as ckpt
 from ..core.logging import MetricsLogger
 
-PORTED_MODES = ("evaluate", "recommend", "serve")
-OTHER_MODES = ("train", "benchmark", "tune", "demo", "download", "all")
+PORTED_MODES = ("train", "evaluate", "recommend", "serve")
+OTHER_MODES = ("benchmark", "tune", "demo", "download", "all")
 
 
 def _parse_overrides(pairs: list[str]) -> dict:
@@ -74,6 +74,15 @@ def _load_checkpoint_if_any(tr, cfg: Config, args, logger) -> None:
     if os.path.exists(path + ".npz"):
         tr.load_checkpoint(path)
         logger.log("loaded_checkpoint", path=path)
+
+
+def cmd_train(cfg: Config, args) -> int:
+    logger = MetricsLogger()
+    tr = _make_trainer(cfg, logger, args.device)
+    resume = os.path.join(cfg.paths.checkpoint_dir, "last_model") if args.resume else None
+    result = tr.fit(resume_from=resume)
+    logger.log("done", best_metric=result["best_metric"])
+    return 0
 
 
 def cmd_evaluate(cfg: Config, args) -> int:
@@ -208,6 +217,8 @@ def main(argv: list[str] | None = None) -> int:
                     help="serve mode: listen port (default serve.port)")
     ap.add_argument("--use-saved-embeddings", action="store_true")
     ap.add_argument("--save-csv", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="train mode: resume from checkpoint_dir/last_model")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="device to run on (default cuda; fails without it)")
     args = ap.parse_args(argv)
@@ -216,7 +227,7 @@ def main(argv: list[str] | None = None) -> int:
                          "package yet; see ROADMAP.md queue 1 (the JAX package "
                          "runs it: python -m movie_recommendation_engine_tpu)")
     cfg = _load_config(args)
-    return {"evaluate": cmd_evaluate, "recommend": cmd_recommend,
+    return {"train": cmd_train, "evaluate": cmd_evaluate, "recommend": cmd_recommend,
             "serve": cmd_serve}[args.mode](cfg, args)
 
 

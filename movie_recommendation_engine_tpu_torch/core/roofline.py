@@ -101,3 +101,20 @@ def gather_pool_l2_bytes(route: str, n: int, d: int, b: int, k: int, table_bytes
     if route == "resident":
         return plan.groups * n * d * table_bytes + plan.slices * pairs + out
     raise ValueError(f"unknown gather_pool route {route!r}")
+
+
+def gather_pool_bwd_bound(n: int, d: int, b: int, k: int, table_bytes: int,
+                          valid_slots: int | None = None) -> dict:
+    """Bound of the gather-pool backward's ``d_table`` (the training path
+    never asks for ``d_w``) for ``valid_slots`` of the B * K slots valid (all
+    by default): the f32 cotangent g [B, D], ids and weights read once,
+    d_table [N, D] written once in the table's dtype, and a multiply and an
+    add per valid slot and column at the float32 rate. ``atomics`` is the
+    count of f32 adds the kernel's scatter makes (one per valid slot and
+    column), printed beside the bound: the L2 carries them, and no published
+    rate bounds them."""
+    slots = b * k if valid_slots is None else valid_slots
+    nbytes = b * d * 4 + b * k * 8 + n * d * table_bytes
+    flops = 2 * slots * d
+    ms, by = bound_ms(nbytes, (flops, FP32_OPS_PER_S))
+    return {"ms": ms, "by": by, "bytes": nbytes, "flops": flops, "atomics": slots * d}

@@ -1,9 +1,11 @@
-"""PinSage inference forwards as PyTorch functions on tensors.
+"""PinSage forwards as PyTorch functions on tensors.
 
-Port of ``movie_recommendation_engine_tpu/models/pinsage.py`` for the serving
-path: the MLP path (a), and the importance-pooling path (b) in gather form
-(``pooled_forward``, optionally with dense pool matrices for a prefix of the
-layers) and dense-matrix form (``pooled_forward_dense``). Parameters keep the
+Port of ``movie_recommendation_engine_tpu/models/pinsage.py``: the MLP path
+(a), and the importance-pooling path (b) in gather form (``pooled_forward``,
+optionally with dense pool matrices for a prefix of the layers) and
+dense-matrix form (``pooled_forward_dense``), each with the batch-restricted
+training form (``pooled_forward_batch[_dense]``) and inverted dropout after
+the hidden convs (``_dropout``). Parameters keep the
 JAX layout — a dict ``{"input_proj", "convs": [...], "output_proj"}`` of
 ``{"w": [in, out], "b": [out]}`` f32 tensors — so JAX weights load one to one.
 
@@ -179,17 +181,49 @@ def _conv_block(conv: Params, h_self_in: torch.Tensor, h_neigh: torch.Tensor,
     return l2_normalize(torch.relu(h))
 
 
+def _dropout(h: torch.Tensor, rate: float, generator: torch.Generator | None = None,
+             keep: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverted dropout, ``where(keep, h / (1 - rate), 0)``, applied after the
+    hidden convs only. ``keep`` (bool, ``h``'s shape) is the mask to use;
+    without it one is drawn from ``generator`` (``uniform < 1 - rate``, as
+    ``jax.random.bernoulli``). A no-op at ``rate <= 0`` or with neither."""
+    if rate <= 0.0 or (keep is None and generator is None):
+        return h
+    if keep is None:
+        keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - rate
+    # The scale in h's dtype, as JAX rounds its weak-typed scalar (bf16 0.8
+    # is 0.80078125).
+    scale = torch.tensor(1.0 - rate, dtype=h.dtype, device=h.device)
+    return torch.where(keep, h / scale, 0.0)
+
+
+def _hidden_dropout(h: torch.Tensor, i: int, rate: float, generator, keep) -> torch.Tensor:
+    return _dropout(h, rate, generator, None if keep is None else keep[i])
+
+
+def _gather_layer(h, nbrs, w, valid_limit, dtype, aggregator, gather_impl):
+    if aggregator != "importance":
+        raise NotImplementedError(
+            f"aggregator {aggregator!r} is not ported yet (ROADMAP queue 1)")
+    return importance_pool(h, nbrs, w, valid_limit, dtype, impl=gather_impl)
+
+
 def pooled_forward_dense(params: Params, x_table: torch.Tensor,
-                         pool_mats: list[torch.Tensor],
-                         dtype=torch.bfloat16) -> torch.Tensor:
+                         pool_mats: list[torch.Tensor], dtype=torch.bfloat16,
+                         dropout_rate: float = 0.0,
+                         generator: torch.Generator | None = None,
+                         dropout_keep: list[torch.Tensor] | None = None) -> torch.Tensor:
     """Full-graph pooled forward with matmul pooling, one [N, N] matrix per
-    layer (importance aggregator)."""
+    layer (importance aggregator). ``dropout_keep`` holds one mask per hidden
+    conv (see ``_dropout``)."""
     convs = params["convs"]
     if len(pool_mats) != len(convs):
         raise ValueError("pooled_forward_dense needs one pool matrix per layer")
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
-    for pm, conv in zip(pool_mats, convs):
+    for i, (pm, conv) in enumerate(zip(pool_mats, convs)):
         h = _conv_block(conv, h, _dense_pool(pm, h, dtype), dtype)
+        if i < len(convs) - 1:
+            h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
     return l2_normalize(linear(params["output_proj"], h, dtype).float())
 
 
@@ -197,23 +231,85 @@ def pooled_forward(params: Params, x_table: torch.Tensor,
                    layer_neighbors: list[torch.Tensor],
                    layer_weights: list[torch.Tensor],
                    valid_limit: int | None = None, dtype=torch.bfloat16,
+                   dropout_rate: float = 0.0,
+                   generator: torch.Generator | None = None,
+                   dropout_keep: list[torch.Tensor] | None = None,
                    aggregator: str = "importance", pool_mats=(),
                    gather_impl: str = "xla") -> torch.Tensor:
     """Full-graph forward: embeddings for every row of ``x_table``. Layer
     ``i < len(pool_mats)`` pools through the dense matrix (hybrid mode); the
     others through ``importance_pool`` with ``gather_impl``."""
-    if aggregator != "importance":
-        raise NotImplementedError(
-            f"aggregator {aggregator!r} is not ported yet (ROADMAP queue 1)")
     convs = params["convs"]
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
     for i, conv in enumerate(convs):
         if i < len(pool_mats):
             h_neigh = _dense_pool(pool_mats[i], h, dtype)
         else:
-            nbrs = layer_neighbors[min(i, len(layer_neighbors) - 1)]
-            w = layer_weights[min(i, len(layer_weights) - 1)]
-            h_neigh = importance_pool(h, nbrs, w, valid_limit, dtype,
-                                      impl=gather_impl)
+            h_neigh = _gather_layer(
+                h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
+                layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
+                aggregator, gather_impl)
         h = _conv_block(conv, h, h_neigh, dtype)
+        if i < len(convs) - 1:
+            h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
     return l2_normalize(linear(params["output_proj"], h, dtype).float())
+
+
+def pooled_forward_batch(params: Params, x_table: torch.Tensor,
+                         layer_neighbors: list[torch.Tensor],
+                         layer_weights: list[torch.Tensor],
+                         batch_nodes: torch.Tensor,
+                         valid_limit: int | None = None, dtype=torch.bfloat16,
+                         dropout_rate: float = 0.0,
+                         generator: torch.Generator | None = None,
+                         dropout_keep: list[torch.Tensor] | None = None,
+                         aggregator: str = "importance", pool_mats=(),
+                         gather_impl: str = "xla") -> torch.Tensor:
+    """Training-step forward: layers 0..L-2 over the full graph (their output
+    is the table the next layer gathers from), then the final conv and the
+    output projection for ``batch_nodes`` [B] only. Batch ids are clamped into
+    the table, as JAX's ``take(..., mode="clip")``. ``pool_mats`` gives dense
+    pooling for a prefix of the layers (hybrid mode), the final one included
+    when it covers every layer."""
+    convs = params["convs"]
+    h = torch.relu(linear(params["input_proj"], x_table, dtype))
+    for i, conv in enumerate(convs[:-1]):
+        if i < len(pool_mats):
+            h_neigh = _dense_pool(pool_mats[i], h, dtype)
+        else:
+            h_neigh = _gather_layer(
+                h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
+                layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
+                aggregator, gather_impl)
+        h = _conv_block(conv, h, h_neigh, dtype)
+        h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
+    last, li = convs[-1], len(convs) - 1
+    idx = batch_nodes.long().clamp(0, h.shape[0] - 1)
+    if li < len(pool_mats):
+        pm = pool_mats[li]
+        h_neigh = _dense_pool(pm[batch_nodes.long().clamp(0, pm.shape[0] - 1)], h, dtype)
+    else:
+        nbrs = layer_neighbors[min(li, len(layer_neighbors) - 1)]
+        w = layer_weights[min(li, len(layer_weights) - 1)]
+        rows = batch_nodes.long().clamp(0, nbrs.shape[0] - 1)
+        h_neigh = _gather_layer(h, nbrs[rows], w[rows], valid_limit, dtype, aggregator,
+                                gather_impl)
+    h_out = _conv_block(last, h[idx], h_neigh, dtype)
+    return l2_normalize(linear(params["output_proj"], h_out, dtype).float())
+
+
+def pooled_forward_batch_dense(params: Params, x_table: torch.Tensor,
+                               pool_mats: list[torch.Tensor], batch_nodes: torch.Tensor,
+                               dtype=torch.bfloat16, dropout_rate: float = 0.0,
+                               generator: torch.Generator | None = None,
+                               dropout_keep: list[torch.Tensor] | None = None
+                               ) -> torch.Tensor:
+    """Dense-matmul ``pooled_forward_batch``: full-graph convs for layers
+    0..L-2, then the final conv on ``batch_nodes`` through a [B, N] row-gather
+    of the last pool matrix."""
+    convs = params["convs"]
+    if len(pool_mats) != len(convs):
+        raise ValueError("pooled_forward_batch_dense needs one pool matrix per layer")
+    return pooled_forward_batch(params, x_table, [], [], batch_nodes, dtype=dtype,
+                                dropout_rate=dropout_rate, generator=generator,
+                                dropout_keep=dropout_keep, pool_mats=pool_mats)

@@ -1,12 +1,18 @@
-"""Fused weighted row gather-pool: ``out[b] = sum_k w[b, k] * table[nbrs[b, k]]``.
+"""Fused weighted row gather-pool: ``out[b] = sum_k w[b, k] * table[nbrs[b, k]]``,
+and its gradient.
 
-Port of ``movie_recommendation_engine_tpu/ops/pallas/pool.py:gather_pool``.
-On a CUDA tensor ``gather_pool`` launches the hand-written kernel
-``csrc/gather_pool.cu`` by the route and tiling ``plan`` picks; on a CPU
-tensor it runs ``gather_pool_plain``, the same function in plain PyTorch. Ids
-``< 0`` or ``>= valid_limit`` get weight 0 and are clamped into range; the
-result is f32 whatever the table's dtype. Only the forward is ported (serving
-needs no backward).
+Port of ``movie_recommendation_engine_tpu/ops/pallas/pool.py:gather_pool`` and
+of ``gather_pool_ad``'s backward. On a CUDA tensor ``gather_pool`` launches
+the hand-written kernel ``csrc/gather_pool.cu`` by the route and tiling
+``plan`` picks; on a CPU tensor it runs ``gather_pool_plain``, the same
+function in plain PyTorch. Ids ``< 0`` or ``>= valid_limit`` get weight 0 and
+are clamped into range; the result is f32 whatever the table's dtype.
+
+Where the table or the weights require grad, ``gather_pool`` runs through
+``GatherPoolFunction``, whose backward is ``gather_pool_bwd``: on a CUDA
+tensor the kernel ``csrc/gather_pool_bwd.cu`` (f32 atomics, so the order of
+its sums changes from run to run), on a CPU tensor ``gather_pool_bwd_plain``.
+The table's gradient comes back in the table's dtype, as in JAX.
 
 Routes (see ``csrc/gather_pool.cu``): ``"direct"``, a warp per output row
 reading every gathered row from L2, takes any table; ``"resident"`` holds a
@@ -25,12 +31,14 @@ import torch
 
 from . import _build
 
-# Kernel launches by this process (the wrapper adds one per launch).
+# Kernel launches by this process (each wrapper adds one per launch).
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 ROUTES = ("direct", "resident")
 _MAX_SMEM = 227 * 1024       # dynamic shared memory a block may use on an H100
 _SMS = 132                   # H100 SXM streaming multiprocessors
 _DIRECT_WARPS = 8            # csrc/gather_pool.cu kWarpsPerBlock
+_BWD_WARPS = 8               # csrc/gather_pool_bwd.cu kWarpsPerBlock
 _MAX_WARPS = 16              # csrc/gather_pool.cu kMaxResidentWarps
 _MIN_WARPS = 4               # fewer warps per block leave the SM idle on latency
 _CHUNKS = (4, 2, 1)          # 16-byte chunks per slice row (CH), widest first
@@ -39,6 +47,7 @@ _CHUNKS = (4, 2, 1)          # 16-byte chunks per slice row (CH), widest first
 MAX_K = _MAX_SMEM // (_DIRECT_WARPS * 8)
 
 _fn = None
+_bwd_fn = None
 
 
 class Plan(NamedTuple):
@@ -162,8 +171,28 @@ def gather_pool_plain(table: torch.Tensor, nbrs: torch.Tensor,
     valid = (nbrs >= 0) & (nbrs < valid_limit)
     w = torch.where(valid, weights.float(), 0.0)
     idx = nbrs.clamp(0, valid_limit - 1).long()
-    feats = table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, -1)
+    feats = table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[1])
     return torch.bmm(w.unsqueeze(1), feats.float()).squeeze(1)
+
+
+def _check(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
+           valid_limit: int) -> None:
+    if table.dim() != 2 or nbrs.dim() != 2 or weights.shape != nbrs.shape:
+        raise ValueError(
+            f"expected table [N, D] and nbrs/weights [B, K], got "
+            f"{tuple(table.shape)}, {tuple(nbrs.shape)}, {tuple(weights.shape)}")
+    if not 1 <= valid_limit <= table.shape[0]:
+        raise ValueError(f"valid_limit must be in [1, {table.shape[0]}], got {valid_limit}")
+    devices = {table.device, nbrs.device, weights.device}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {devices}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {table.device}")
+
+
+def _check_cuda(*tensors: torch.Tensor) -> None:
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("gather_pool needs contiguous tensors")
 
 
 def gather_pool(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
@@ -171,30 +200,26 @@ def gather_pool(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
     """[B, D] f32 pooled rows. ``table`` [N, D] bf16 or f32, ``nbrs`` [B, K]
     int32, ``weights`` [B, K] f32, ``1 <= valid_limit <= N``. ``route``
     forces ``"direct"`` or ``"resident"`` on the card (tests and
-    ``chip_smoke.py``); ``None`` lets ``plan`` pick."""
-    if table.dim() != 2 or nbrs.dim() != 2 or weights.shape != nbrs.shape:
-        raise ValueError(
-            f"expected table [N, D] and nbrs/weights [B, K], got "
-            f"{tuple(table.shape)}, {tuple(nbrs.shape)}, {tuple(weights.shape)}")
-    n, d = table.shape
-    b, k = nbrs.shape
-    if not 1 <= valid_limit <= n:
-        raise ValueError(f"valid_limit must be in [1, {n}], got {valid_limit}")
+    ``chip_smoke.py``); ``None`` lets ``plan`` pick. Differentiable in
+    ``table`` and ``weights``."""
+    _check(table, nbrs, weights, valid_limit)
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")
-    devices = {table.device, nbrs.device, weights.device}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {devices}")
+    if torch.is_grad_enabled() and (table.requires_grad or weights.requires_grad):
+        return GatherPoolFunction.apply(table, nbrs, weights, valid_limit, route)
+    return _forward(table, nbrs, weights, valid_limit, route)
+
+
+def _forward(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
+             valid_limit: int, route: str | None) -> torch.Tensor:
     if table.device.type == "cpu":
         return gather_pool_plain(table, nbrs, weights, valid_limit)
-    if table.device.type != "cuda":
-        raise ValueError(f"unsupported device {table.device}")
     if nbrs.dtype != torch.int32 or weights.dtype != torch.float32:
         raise TypeError(f"nbrs must be int32 and weights float32, got "
                         f"{nbrs.dtype}, {weights.dtype}")
-    if not (table.is_contiguous() and nbrs.is_contiguous()
-            and weights.is_contiguous()):
-        raise ValueError("gather_pool needs contiguous tensors")
+    _check_cuda(table, nbrs, weights)
+    n, d = table.shape
+    b, k = nbrs.shape
     p = plan(valid_limit, d, b, k, table.dtype, route=route,
              aligned=table.data_ptr() % 16 == 0)
     out = torch.empty((b, d), dtype=torch.float32, device=table.device)
@@ -217,3 +242,122 @@ def gather_pool(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
     global LAUNCHES
     LAUNCHES += 1
     return out
+
+
+class GatherPoolFunction(torch.autograd.Function):
+    """``gather_pool`` with its gradient in ``table`` and ``weights`` (the
+    counterpart of JAX's ``gather_pool_ad``). The backward computes only the
+    gradients autograd asks for: on the training path the weights are
+    constants, so ``d_w`` is skipped there."""
+
+    @staticmethod
+    def forward(ctx, table, nbrs, weights, valid_limit, route):
+        ctx.save_for_backward(table, nbrs, weights)
+        ctx.valid_limit = valid_limit
+        return _forward(table, nbrs, weights, valid_limit, route)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        table, nbrs, weights = ctx.saved_tensors
+        d_table, d_w = gather_pool_bwd(table, nbrs, weights, ctx.valid_limit,
+                                       g.float().contiguous(),
+                                       need_table=ctx.needs_input_grad[0],
+                                       need_weights=ctx.needs_input_grad[2])
+        return d_table, None, d_w, None, None
+
+
+def gather_pool_bwd_plain(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
+                          valid_limit: int, g: torch.Tensor, need_table: bool = True,
+                          need_weights: bool = True):
+    """(d_table in the table's dtype or None, d_w f32 or None): ``index_add_``
+    of ``w * g`` in f32 over the clamped ids of the valid slots, and the
+    ``einsum`` of ``g`` with the gathered rows, 0 at masked slots."""
+    valid = (nbrs >= 0) & (nbrs < valid_limit)
+    w = torch.where(valid, weights.float(), 0.0)
+    idx = nbrs.clamp(0, valid_limit - 1).long()
+    g32 = g.float()
+    d_table = d_w = None
+    if need_table:
+        contrib = (w[..., None] * g32[:, None, :]).reshape(w.numel(), table.shape[1])
+        d_table = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+        d_table = d_table.index_add_(0, idx.reshape(-1), contrib).to(table.dtype)
+    if need_weights:
+        feats = table.float().index_select(0, idx.reshape(-1)).reshape(*idx.shape,
+                                                                       table.shape[1])
+        d_w = torch.where(valid, torch.einsum("bd,bkd->bk", g32, feats), 0.0)
+    return d_table, d_w
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = _build.library("gather_pool_bwd")
+        fn = lib.gather_pool_bwd_launch
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.gather_pool_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.gather_pool_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_fn = (fn, lib.gather_pool_bwd_error_string)
+    return _bwd_fn
+
+
+def _bwd_limits(n: int, d: int, b: int, k: int) -> None:
+    """The backward kernel's own limits: 32-bit sizes, and its warps' staged
+    (id, weight) pairs within a block's shared memory."""
+    if max(n, d, b, k) >= 2**31 or b * k >= 2**31:
+        raise ValueError(f"N={n}, D={d}, B={b}, K={k}: the backward kernel takes fewer "
+                         "than 2**31 rows, columns and slots")
+    smem = _BWD_WARPS * k * 8
+    if smem > _MAX_SMEM:
+        raise ValueError(f"K={k} needs {smem} bytes of shared memory per block, above "
+                         f"the backward kernel's limit of {_MAX_SMEM}")
+
+
+def gather_pool_bwd(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
+                    valid_limit: int, g: torch.Tensor, need_table: bool = True,
+                    need_weights: bool = True):
+    """The gradient of ``gather_pool`` for the f32 cotangent ``g`` [B, D]:
+    (d_table [N, D] in the table's dtype or None, d_w [B, K] f32 or None),
+    each computed only when asked for. On a CUDA tensor the kernel, else
+    ``gather_pool_bwd_plain``."""
+    _check(table, nbrs, weights, valid_limit)
+    n, d = table.shape
+    b, k = nbrs.shape
+    if g.shape != (b, d) or g.device != table.device:
+        raise ValueError(f"g must be [{b}, {d}] on {table.device}, got "
+                         f"{tuple(g.shape)} on {g.device}")
+    if table.device.type == "cpu":
+        return gather_pool_bwd_plain(table, nbrs, weights, valid_limit, g,
+                                     need_table, need_weights)
+    if (nbrs.dtype != torch.int32 or weights.dtype != torch.float32
+            or g.dtype != torch.float32):
+        raise TypeError(f"nbrs must be int32, weights and g float32, got "
+                        f"{nbrs.dtype}, {weights.dtype}, {g.dtype}")
+    _element_size(table.dtype)
+    _check_cuda(table, nbrs, weights, g)
+    _bwd_limits(n, d, b, k)
+    d_table = (torch.zeros((n, d), dtype=torch.float32, device=table.device)
+               if need_table else None)
+    d_w = torch.zeros((b, k), dtype=torch.float32, device=table.device) if need_weights else None
+    if b == 0 or d == 0 or not (need_table or need_weights):
+        return (None if d_table is None else d_table.to(table.dtype)), d_w
+    vectorized = (d % 4 == 0 and g.data_ptr() % 16 == 0
+                  and table.data_ptr() % (4 * table.element_size()) == 0)
+    fn, err_str = _bwd_kernel()
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        rc = fn(table.data_ptr(), int(table.dtype == torch.bfloat16), nbrs.data_ptr(),
+                weights.data_ptr(), g.data_ptr(),
+                None if d_table is None else d_table.data_ptr(),
+                None if d_w is None else d_w.data_ptr(), b, k, d, valid_limit,
+                int(vectorized), stream)
+    if rc != 0:
+        raise RuntimeError(f"gather_pool_bwd kernel launch failed: "
+                           f"{err_str(rc).decode()} (cudaError {rc})")
+    global BWD_LAUNCHES
+    BWD_LAUNCHES += 1
+    return (None if d_table is None else d_table.to(table.dtype)), d_w

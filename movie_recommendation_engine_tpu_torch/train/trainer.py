@@ -1,32 +1,56 @@
-"""Inference half of the training runtime: graph, features, neighborhood
-tables, pool operators, full-corpus embeddings, evaluation, checkpoint load.
+"""Training runtime: graph, features, neighborhood tables, pool operators,
+the train step, the epoch loop, evaluation and checkpoint / resume.
 
-Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for the serving
-path (``__init__``, ``refresh_neighborhoods`` for the dense, hybrid and gather
-rungs, ``movie_embeddings``, ``evaluate``, ``load_checkpoint``). The train
-step, the hub and block rungs and the device mesh are not ported yet
-(ROADMAP queue 1). Table sampling (``refresh_neighborhoods``) is split from
-the building of the pool operators (``set_neighborhood_tables``) so that
-tables sampled elsewhere — by the JAX package, in the tests — can be used.
+Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for the dense,
+hybrid and gather rungs (the hub and block rungs and the device mesh are not
+ported yet, ROADMAP queue 1). Contrastive training over shared random and
+rank-window hard negatives on importance-pooled embeddings: per step, the
+negatives, the batch-restricted pooled forward with dropout, the loss
+(``train.loss``, NCE by default), its gradient and an Adam update.
+
+Where JAX scans a jitted block of steps, ``train_steps`` is a Python loop of
+steps on the device. The epoch is still cut into blocks of
+``min(8, steps)`` steps, padded to whole blocks by wrap-around, so that the
+port takes as many Adam steps as JAX. Random numbers come from one
+``torch.Generator``; ``train_steps`` takes each step's draws instead
+(``StepDraws``), which is how the tests feed JAX's. Table sampling
+(``refresh_neighborhoods``) is split from the building of the pool operators
+(``set_neighborhood_tables``) so that tables sampled elsewhere can be used.
 """
 
 from __future__ import annotations
+
+import os
+import time
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..core import checkpoint as ckpt
+from ..core import tree
 from ..core.device import resolve_device
 from ..core.logging import MetricsLogger
 from ..evaluation import metrics as eval_metrics
 from ..graph import features as feat_mod
 from ..graph.dataset import MovieLensData
 from ..graph.split import corated_item_pairs
-from ..models import pinsage
-from ..sampling import random_walk as rw
+from ..models import losses, pinsage
+from ..sampling import negative, random_walk as rw
+from . import optim
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+class StepDraws(NamedTuple):
+    """One train step's random inputs: the shared random negatives [R] and
+    the hard negatives [B, H] (None when H = 0) as int32 movie ids, and one
+    bool keep mask per hidden conv ([N, hidden], None to draw them)."""
+
+    random: torch.Tensor
+    hard: torch.Tensor | None = None
+    keep: list[torch.Tensor] | None = None
 
 
 def _not_ported(what: str) -> NotImplementedError:
@@ -117,14 +141,14 @@ class Trainer:
             use_batch_norm=cfg.model.use_batch_norm,
             init_style=cfg.model.init_style, device=self.device)
         self.compute_dtype = _DTYPES[cfg.train.compute_dtype]
+        self.opt_state = optim.adam_init(self.params)
+        self.plateau = optim.plateau_init(cfg.train.learning_rate)
         self.epoch = 0
         self.best_metric = -float("inf")
-        # Restored by load_checkpoint and kept for the training slice.
-        self.opt_state: dict[str, np.ndarray] = {}
-        self.rng: np.ndarray | None = None
-        self.plateau: dict | None = None
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         self.pool_mats: tuple = ()
+        # Steps per block of an epoch (see train_epoch).
+        self.steps_per_call = 8
 
         # "auto" = the torch gather + einsum formulation, as the JAX trainer
         # resolves it; "pallas" = the CUDA gather kernel (ops/pool.py).
@@ -200,6 +224,171 @@ class Trainer:
                                       dtype=torch.bfloat16)
             for nbrs, w in self.nbr_tables[:n_dense])
 
+    # ---- train step -------------------------------------------------------
+
+    def draw_step(self, q: torch.Tensor, num_hard: int) -> StepDraws:
+        """One step's negatives from the generator (the keep masks are drawn
+        by the forward)."""
+        cfg = self.cfg
+        num_rand = min(cfg.train.num_negative_samples, self.data.num_movies)
+        rand_negs = negative.sample_random_negatives(
+            self.data.num_movies, num_rand, self.generator, self.device)
+        hard = None
+        if num_hard > 0:
+            hard = negative.sample_hard_negatives(
+                self.graph, q, num_hard, self.data.num_movies, num_walks=100,
+                walk_length=cfg.walk.walk_length, min_rank=cfg.train.hard_neg_min_rank,
+                max_rank=cfg.train.hard_neg_max_rank, n_iters=self.n_iters,
+                generator=self.generator)
+        return StepDraws(rand_negs, hard)
+
+    def _loss(self, params, q: torch.Tensor, p: torch.Tensor, draws: StepDraws,
+              epoch: float) -> torch.Tensor:
+        cfg = self.cfg
+        b, num_rand = q.shape[0], draws.random.shape[0]
+        nodes = [q, p, draws.random]
+        if draws.hard is not None:
+            nodes.append(draws.hard.reshape(-1))
+        all_nodes = torch.cat([x.to(torch.int32) for x in nodes])
+        drop = dict(dropout_rate=cfg.model.dropout, generator=self.generator,
+                    dropout_keep=draws.keep)
+        if cfg.train.train_path == "mlp":
+            emb = pinsage.mlp_forward(params, self.x_table[all_nodes.long()],
+                                      self.compute_dtype)
+        elif len(self.pool_mats) == cfg.model.num_layers:
+            emb = pinsage.pooled_forward_batch_dense(
+                params, self.x_table, list(self.pool_mats), all_nodes,
+                dtype=self.compute_dtype, **drop)
+        else:
+            emb = pinsage.pooled_forward_batch(
+                params, self.x_table, [t[0] for t in self.nbr_tables],
+                [t[1] for t in self.nbr_tables], all_nodes, valid_limit=self.valid_limit,
+                dtype=self.compute_dtype, aggregator=cfg.model.aggregator_type,
+                pool_mats=self.pool_mats, gather_impl=self.gather_impl, **drop)
+        q_emb, p_emb = emb[:b], emb[b:2 * b]
+        r_emb = emb[2 * b:2 * b + num_rand]
+        h_emb = (emb[2 * b + num_rand:].reshape(b, draws.hard.shape[1], -1)
+                 if draws.hard is not None else None)
+
+        kind = cfg.train.loss if cfg.train.train_path != "mlp" else "cosine"
+        if kind == "cosine":
+            return losses.cosine_objective(q_emb, p_emb)
+        if kind == "batch_hard":
+            return losses.batch_hard_triplet_loss(q_emb, p_emb, cfg.train.margin)
+        if kind == "max_margin":
+            return losses.shared_pool_max_margin_loss(q_emb, p_emb, r_emb, cfg.train.margin)
+        if kind == "nce":
+            return losses.nce_loss(q_emb, p_emb, r_emb, h_emb,
+                                   temperature=cfg.train.nce_temperature)
+        return losses.curriculum_loss(
+            q_emb, p_emb, r_emb, h_emb, epoch, margin=cfg.train.margin,
+            max_epochs=cfg.train.epochs, hard_negative_factor=cfg.train.hard_neg_factor)
+
+    def loss_and_grads(self, q: torch.Tensor, p: torch.Tensor, draws: StepDraws,
+                       epoch: float) -> tuple[torch.Tensor, Any]:
+        """The step's loss and its gradient in every parameter (zeros for
+        the ones the loss does not read, as JAX's), at ``self.params``."""
+        flat = tree.flatten(self.params)
+        leaves = [x.detach().requires_grad_() for x in flat.values()]
+        loss = self._loss(tree.unflatten(dict(zip(flat, leaves))), q, p, draws, epoch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        return loss.detach(), tree.unflatten(dict(zip(flat, grads)))
+
+    def train_steps(self, q_blk, p_blk, lr: float, epoch: float, num_hard: int,
+                    draws: list[StepDraws] | None = None) -> torch.Tensor:
+        """Steps over the batches ``q_blk``, ``p_blk`` [S, B]: per step the
+        negatives (``draws[s]`` if given, else drawn), the loss and its
+        gradient, and an Adam update of ``self.params`` at ``lr``. Returns
+        the [S] f32 losses on the device, without waiting for them."""
+        if self.nbr_tables is None and self.cfg.train.train_path != "mlp":
+            self.refresh_neighborhoods()
+        q_blk = torch.as_tensor(q_blk, dtype=torch.int32, device=self.device)
+        p_blk = torch.as_tensor(p_blk, dtype=torch.int32, device=self.device)
+        step_losses = []
+        for s in range(q_blk.shape[0]):
+            d = draws[s] if draws is not None else self.draw_step(q_blk[s], num_hard)
+            loss, grads = self.loss_and_grads(q_blk[s], p_blk[s], d, epoch)
+            self.params, self.opt_state = optim.adam_update(grads, self.opt_state,
+                                                            self.params, lr)
+            step_losses.append(loss)
+        return torch.stack(step_losses).float()
+
+    # ---- epoch loop -------------------------------------------------------
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _epoch_pairs(self, rng: np.random.Generator) -> np.ndarray:
+        pairs = self.train_pairs
+        cap = self.cfg.train.max_pairs_per_epoch
+        if cap is not None and pairs.shape[0] > cap:
+            pairs = pairs[rng.choice(pairs.shape[0], size=cap, replace=False)]
+        else:
+            pairs = pairs[rng.permutation(pairs.shape[0])]
+        # Pad to a whole number of fixed-size batches (wrap-around).
+        bsz = min(self.cfg.train.batch_size, max(pairs.shape[0], 1))
+        pad = (-pairs.shape[0]) % bsz
+        if pad:
+            reps = 2 + pad // max(pairs.shape[0], 1)
+            pairs = np.concatenate([pairs] * reps, axis=0)[: pairs.shape[0] + pad]
+        return pairs.reshape(-1, bsz, 2)
+
+    def train_epoch(self, epoch: int) -> dict[str, float]:
+        cfg = self.cfg
+        refresh = cfg.train.refresh_neighborhoods_every
+        refresh_s = 0.0
+        if self.nbr_tables is None or (refresh and epoch % refresh == 0):
+            t0 = time.perf_counter()
+            self.refresh_neighborhoods()
+            self._sync()
+            refresh_s = time.perf_counter() - t0
+            self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s)
+
+        batches = self._epoch_pairs(np.random.default_rng(cfg.train.seed + 1000 + epoch))
+        num_hard = (negative.curriculum_num_hard(epoch, cfg.train.max_hard_negatives)
+                    if cfg.train.loss in ("curriculum", "nce")
+                    and cfg.train.train_path != "mlp" else 0)
+        # Blocks of min(8, steps) steps, the step count padded to whole
+        # blocks (wrap-around) as JAX's scanned blocks are: the padded steps
+        # update the params and are left out of the loss mean.
+        s_total = batches.shape[0]
+        block = min(self.steps_per_call, s_total)
+        pad_steps = (-s_total) % block
+        if pad_steps:
+            batches = np.concatenate([batches, batches[:pad_steps]], axis=0)
+        q_all = torch.as_tensor(batches[:, :, 0], dtype=torch.int32, device=self.device)
+        p_all = torch.as_tensor(batches[:, :, 1], dtype=torch.int32, device=self.device)
+
+        step_losses = []
+        self._sync()
+        t0 = time.perf_counter()
+        t_after_first = None
+        for s0 in range(0, batches.shape[0], block):
+            step_losses.append(self.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block],
+                                                self.plateau.lr, float(epoch), num_hard))
+            if t_after_first is None:
+                self._sync()
+                t_after_first = time.perf_counter()
+        all_losses = torch.cat(step_losses).cpu().numpy()[:s_total]
+        t_end = time.perf_counter()
+
+        bsz = int(batches.shape[1])
+        n_timed_steps = batches.shape[0] - block
+        timed_s = t_end - t_after_first
+        exps = (bsz * n_timed_steps / timed_s if n_timed_steps and timed_s > 0
+                else bsz * block / max(t_after_first - t0, 1e-9))
+        return {
+            "loss": float(all_losses.mean()),
+            "examples_per_sec": exps,
+            # Mean over the steps after the first block (host clock, device
+            # synchronized at both ends).
+            "step_ms_avg": timed_s / n_timed_steps * 1e3 if n_timed_steps else float("nan"),
+            "num_hard": num_hard,
+            "refresh_seconds": round(refresh_s, 2),
+            "step_wall_seconds": round(t_end - t0, 2),
+        }
+
     # ---- inference / eval -------------------------------------------------
 
     @torch.no_grad()
@@ -240,18 +429,113 @@ class Trainer:
             emb, pairs, k_values=self.cfg.eval.k_values,
             mrr_scale=self.cfg.eval.mrr_scale)
 
-    # ---- checkpoint -------------------------------------------------------
+
+    # ---- checkpoint / resume ----------------------------------------------
+
+    def _rng_words(self) -> np.ndarray:
+        """Two uint32 words drawn from the generator, which is then reseeded
+        from them: a run that saves continues exactly as one that resumes
+        from what it saved (``_reseed``)."""
+        words = torch.randint(0, 2**32, (2,), generator=self.generator,
+                              device=self.device, dtype=torch.int64).cpu().numpy()
+        words = words.astype(np.uint32)
+        self._reseed(words)
+        return words
+
+    def _reseed(self, words: np.ndarray) -> None:
+        w = np.asarray(words, np.uint32).reshape(-1)
+        if w.shape != (2,):
+            raise ValueError(f"checkpoint rng must be uint32[2], got shape {w.shape}")
+        self.generator.manual_seed((int(w[0]) << 32) | int(w[1]))
+
+    def save_checkpoint(self, path: str, tag: str = "last") -> None:
+        """Params, Adam state and a uint32[2] ``rng`` in the JAX package's
+        format (``.npz`` + ``.meta.json``), which its Trainer resumes."""
+        flat = {f"params/{k}": v for k, v in ckpt.params_to_jax(self.params).items()}
+        flat.update(optim.state_to_jax(self.opt_state))
+        flat["rng"] = self._rng_words()
+        meta = {"epoch": self.epoch, "best_metric": self.best_metric,
+                "plateau": self.plateau._asdict(), "config": self.cfg.to_dict(), "tag": tag}
+        ckpt.save_flat(path, flat, meta)
 
     def load_checkpoint(self, path: str) -> None:
-        """Params and metadata from a JAX-format checkpoint (``.npz`` +
-        ``.meta.json``). Optimizer leaves and the JAX rng key are kept as
-        numpy arrays for the training slice."""
+        """Params, Adam state, rng (the generator is reseeded from it),
+        epoch, best metric and plateau state from a checkpoint written by
+        either package."""
         flat = ckpt.load_flat(path)
         meta = ckpt.load_meta(path)
         self.params = ckpt.params_from_jax(flat, self.device)
-        self.opt_state = {k: v for k, v in flat.items() if k.startswith("opt/")}
-        self.rng = flat.get("rng")
+        self.opt_state = optim.state_from_jax(flat, self.device)
+        self._reseed(flat["rng"])
         self.epoch = int(meta["epoch"])
         self.best_metric = float(meta["best_metric"])
-        self.plateau = dict(meta["plateau"])
+        self.plateau = optim.PlateauState(**meta["plateau"])
 
+    # ---- main loop --------------------------------------------------------
+
+    def fit(self, resume_from: str | None = None) -> dict[str, Any]:
+        """Epochs from ``self.epoch`` to ``train.epochs``: train, validate
+        (HR@min(k) every ``eval.eval_every`` epochs), step the plateau
+        schedule, write ``last_model`` every epoch and ``best_model`` on a
+        new best, stop early on ``eval.patience``."""
+        cfg = self.cfg
+        if resume_from and os.path.exists(
+                resume_from if resume_from.endswith(".npz") else resume_from + ".npz"):
+            self.load_checkpoint(resume_from)
+            self.log.log("resume", epoch=self.epoch)
+
+        stopper = optim.EarlyStopping(cfg.eval.patience)
+        stopper.best = self.best_metric
+        os.makedirs(cfg.paths.checkpoint_dir, exist_ok=True)
+        best_path = os.path.join(cfg.paths.checkpoint_dir, "best_model")
+        last_path = os.path.join(cfg.paths.checkpoint_dir, "last_model")
+        history = []
+        best_written = False  # did THIS fit() call write best_model?
+
+        for epoch in range(self.epoch, cfg.train.epochs):
+            self.epoch = epoch
+            t0 = time.perf_counter()
+            stats = self.train_epoch(epoch)
+            stats["epoch_seconds"] = time.perf_counter() - t0
+
+            val_metric = None
+            if (cfg.eval.eval_every and (epoch + 1) % cfg.eval.eval_every == 0
+                    and self.val_pairs.shape[0] > 0):
+                vp = self.val_pairs
+                cap = cfg.eval.max_val_pairs
+                if cap is not None and vp.shape[0] > cap:
+                    vp = vp[np.random.default_rng(cfg.train.seed + 7).choice(
+                        vp.shape[0], size=cap, replace=False)]
+                val = self.evaluate(vp)
+                val_metric = val[f"hit_rate@{min(cfg.eval.k_values)}"]
+                stats.update({f"val_{k}": v for k, v in val.items()})
+
+            # Plateau on the train loss (min mode) or on the val metric (max
+            # mode, by negation; epochs without validation leave it as is).
+            if cfg.train.lr_plateau_monitor == "val_metric":
+                if val_metric is not None:
+                    self.plateau = optim.plateau_step(
+                        self.plateau, -float(val_metric), factor=cfg.train.lr_plateau_factor,
+                        patience=cfg.train.lr_plateau_patience)
+            else:
+                self.plateau = optim.plateau_step(
+                    self.plateau, stats["loss"], factor=cfg.train.lr_plateau_factor,
+                    patience=cfg.train.lr_plateau_patience)
+            stats["lr"] = self.plateau.lr
+            self.log.log_epoch(epoch, **stats)
+            history.append(stats)
+
+            self.epoch = epoch + 1
+            self.save_checkpoint(last_path, tag="last")
+            if val_metric is not None and val_metric > self.best_metric:
+                self.best_metric = val_metric
+                self.save_checkpoint(best_path, tag="best")
+                best_written = True
+            if val_metric is not None and stopper.update(val_metric):
+                self.log.log("early_stop", epoch=epoch)
+                break
+
+        return {"history": history, "best_metric": self.best_metric,
+                # Only when this call wrote it: a resumed run restores
+                # best_metric without writing best_model.
+                "best_path": best_path if best_written else None}

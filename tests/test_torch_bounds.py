@@ -71,3 +71,18 @@ def test_gather_pool_l2_bytes_at_the_serving_shape():
     assert min(direct, resident) >= roofline.gather_pool_bound(n, 256, b, 50, 2)["bytes"]
     with pytest.raises(ValueError):
         roofline.gather_pool_l2_bytes("fast", n, 256, b, 50, 2)
+
+
+def test_gather_pool_bwd_bound_at_the_training_layer_0():
+    """g 4.08 MB f32, ids and weights 1.59 MB, d_table 2.04 MB bf16 at
+    N = B = 3980, K = 50, D = 256: bytes bind; one f32 atomic add per slot
+    and column."""
+    b = roofline.gather_pool_bwd_bound(3980, 256, 3980, 50, table_bytes=2)
+    assert b["bytes"] == 3980 * 256 * 4 + 3980 * 50 * 8 + 3980 * 256 * 2 == 7_705_280
+    assert b["atomics"] == 50_944_000 and b["flops"] == 2 * 50_944_000
+    assert b["by"] == "bytes"
+    assert b["ms"] == pytest.approx(7_705_280 / 3.35e12 * 1e3)
+    # Only the valid slots add; the compulsory bytes stay.
+    v = roofline.gather_pool_bwd_bound(3980, 256, 3980, 50, 2, valid_slots=186_000)
+    assert v["atomics"] == 186_000 * 256 and v["bytes"] == b["bytes"]
+    assert v["flops"] == 2 * 186_000 * 256 and v["ms"] == b["ms"]

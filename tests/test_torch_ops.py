@@ -1,7 +1,10 @@
 """PyTorch port, kernel modules: ``ops/pool.py`` and ``ops/hamming.py``.
 
 The plain PyTorch versions (what the wrappers run on CPU tensors) are held
-against the JAX package's Pallas kernels in interpret mode. Tests marked
+against the JAX package's Pallas kernels in interpret mode, and the
+gather-pool gradients (plain, and through ``GatherPoolFunction``) against
+``gather_pool_ad``'s: f32 1e-5 (sums in another order), a bf16 ``d_table``
+within one bf16 step (2^-7 relative; both round one f32 sum). Tests marked
 ``cuda`` hold the CUDA kernels against the plain versions on the card; they
 skip on a machine without one. On the card (no JAX there) run them with
 ``python -m pytest tests/test_torch_ops.py -m cuda --noconftest``.
@@ -79,6 +82,119 @@ def test_gather_pool_plain_matches_pallas(jax_ops, n, d, b, k, limit, dtype):
     np.testing.assert_allclose(got.numpy(), ref, atol=1e-5)
     np.testing.assert_allclose(np.asarray(jax_out), ref, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(jax_out), atol=1e-5)
+
+
+def _pool_grad_inputs(n, d, b, k, limit, dtype):
+    table, nbrs, w = _pool_inputs(4, n, d, b, k, limit)
+    if dtype == "bfloat16":
+        table = _bf16_round(table)
+    g = np.random.default_rng(5).standard_normal((b, d)).astype(np.float32)
+    return table, nbrs, w, g
+
+
+def _assert_d_table(got, ref, dtype):
+    if dtype == "bfloat16":
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2**-7, atol=1e-6)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,b,k,limit,dtype", POOL_CASES)
+def test_gather_pool_grads_match_gather_pool_ad(jax_ops, n, d, b, k, limit, dtype):
+    """d_table and d_w, from ``gather_pool_bwd_plain`` and from autograd
+    through ``gather_pool``, against ``jax.grad`` of ``gather_pool_ad`` (its
+    Pallas forward in interpret mode, its XLA backward)."""
+    import jax
+    import jax.numpy as jnp
+
+    _, j_pool = jax_ops
+    table, nbrs, w, g = _pool_grad_inputs(n, d, b, k, limit, dtype)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def f(t, ww):
+        return jnp.sum(j_pool.gather_pool_ad(t, jnp.asarray(nbrs), ww, limit, 4, True) * g)
+
+    ref_t, ref_w = jax.grad(f, argnums=(0, 1))(jnp.asarray(table, jd), jnp.asarray(w))
+    ref_t = torch.from_numpy(np.array(ref_t, np.float32)).to(td)
+    ref_w = torch.from_numpy(np.array(ref_w))
+    tt, nb, ww, gg = (torch.from_numpy(table).to(td), torch.from_numpy(nbrs),
+                      torch.from_numpy(w), torch.from_numpy(g))
+    d_t, d_w = t_pool.gather_pool_bwd_plain(tt, nb, ww, limit, gg)
+    assert d_t.dtype == td and d_w.dtype == torch.float32
+    _assert_d_table(d_t, ref_t, dtype)
+    torch.testing.assert_close(d_w, ref_w, rtol=1e-5, atol=1e-5)
+    tt.requires_grad_()
+    ww.requires_grad_()
+    out = t_pool.gather_pool(tt, nb, ww, limit)
+    assert out.grad_fn is not None
+    (out * gg).sum().backward()
+    _assert_d_table(tt.grad, ref_t, dtype)
+    torch.testing.assert_close(ww.grad, ref_w, rtol=1e-5, atol=1e-5)
+
+
+def _grads_through(pool_fn, table, nbrs, w, limit, g, wrt):
+    t = table.detach().clone().requires_grad_("table" in wrt)
+    ww = w.detach().clone().requires_grad_("weights" in wrt)
+    out = pool_fn(t, nbrs, ww, limit)
+    assert out.requires_grad and out.grad_fn is not None
+    (out * g).sum().backward()
+    return t.grad, ww.grad
+
+
+@pytest.mark.parametrize("wrt", [("table",), ("weights",), ("table", "weights")])
+def test_gather_pool_autograd_equals_autograd_through_plain(wrt):
+    """Where an input requires grad, ``gather_pool`` returns a tensor with a
+    gradient, the same one autograd takes through ``gather_pool_plain``; the
+    gradient not asked for stays None."""
+    table, nbrs, w, g = (torch.from_numpy(x) for x in _pool_grad_inputs(40, 24, 9, 6, 33,
+                                                                         "float32"))
+    got = _grads_through(t_pool.gather_pool, table, nbrs, w, 33, g, wrt)
+    ref = _grads_through(t_pool.gather_pool_plain, table, nbrs, w, 33, g, wrt)
+    for a, b in zip(got, ref):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    with torch.no_grad():
+        assert t_pool.gather_pool(table.requires_grad_(), nbrs, w, 33).grad_fn is None
+
+
+def test_gather_pool_bwd_rejects_bad_cotangent():
+    table, nbrs, w = torch.zeros(6, 8), torch.zeros(3, 2, dtype=torch.int32), torch.ones(3, 2)
+    with pytest.raises(ValueError, match="g must be"):
+        t_pool.gather_pool_bwd(table, nbrs, w, 6, torch.zeros(3, 7))
+    d_t, d_w = t_pool.gather_pool_bwd(table, nbrs, w, 6, torch.ones(3, 8), need_weights=False)
+    assert d_w is None and d_t[0].sum().item() == 6 * 8
+
+
+# (n, d, b, k): no columns, no output rows.
+EMPTY_BWD_CASES = [(6, 0, 3, 4), (6, 8, 0, 4)]
+
+
+def _empty_bwd(device, n, d, b, k):
+    table = torch.ones((n, d), device=device)
+    nbrs = torch.zeros((b, k), dtype=torch.int32, device=device)
+    w, g = torch.ones((b, k), device=device), torch.ones((b, d), device=device)
+    d_t, d_w = t_pool.gather_pool_bwd(table, nbrs, w, n, g)
+    assert torch.equal(d_t, torch.zeros((n, d), device=device))
+    assert torch.equal(d_w, torch.zeros((b, k), device=device))
+
+
+@pytest.mark.parametrize("n,d,b,k", EMPTY_BWD_CASES)
+def test_gather_pool_bwd_empty_shapes(n, d, b, k):
+    """An empty sum is 0: both gradients come back zero, not unset."""
+    _empty_bwd("cpu", n, d, b, k)
+
+
+def test_gather_pool_bwd_limits():
+    """The backward kernel's own limits, apart from the forward's routes."""
+    t_pool._bwd_limits(10, 8, 10, t_pool.MAX_K)
+    with pytest.raises(ValueError, match="shared memory"):
+        t_pool._bwd_limits(10, 8, 10, t_pool.MAX_K + 1)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        t_pool._bwd_limits(10, 8, 2**26, 64)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        t_pool._bwd_limits(10, 2**31, 10, 4)
 
 
 def test_gather_pool_rejects_bad_limit():
@@ -159,6 +275,65 @@ def test_gather_pool_kernel_matches_plain(cuda, n, d, b, k, limit, dtype):
     assert t_pool.LAUNCHES == before + 1
     ref = t_pool.gather_pool_plain(t, nb, ww, limit)
     torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+# The training step's shapes: layer 0 over the whole graph (B = N = 3980),
+# the batch layer at epoch 0 (B = 2 * 512 + 500) and with six hard negatives
+# per query (B = 1524 + 512 * 6); plus the edge shapes above.
+CUDA_BWD_CASES = CUDA_POOL_CASES + [
+    (3980, 256, 3980, 50, 3980, "bfloat16"),
+    (3980, 256, 1524, 50, 3980, "bfloat16"),
+    (3980, 256, 4596, 50, 3980, "bfloat16"),
+    (3980, 256, 1524, 50, 3980, "float32"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,k,limit,dtype", CUDA_BWD_CASES)
+def test_gather_pool_bwd_kernel_matches_plain(cuda, n, d, b, k, limit, dtype):
+    """d_table within 1e-4 (f32; atomics add in a run-dependent order) or one
+    bf16 step, d_w within 1e-4; one launch per call."""
+    table, nbrs, w = _cuda_pool_inputs(cuda, 6, n, d, b, k, limit, dtype)
+    g = torch.randn((b, d), generator=torch.Generator(cuda).manual_seed(0), device=cuda)
+    before = t_pool.BWD_LAUNCHES
+    d_t, d_w = t_pool.gather_pool_bwd(table, nbrs, w, limit, g)
+    torch.cuda.synchronize()
+    assert t_pool.BWD_LAUNCHES == before + 1
+    r_t, r_w = t_pool.gather_pool_bwd_plain(table, nbrs, w, limit, g)
+    assert d_t.dtype == table.dtype and d_w.dtype == torch.float32
+    if dtype == "bfloat16":
+        torch.testing.assert_close(d_t.float(), r_t.float(), rtol=2**-7, atol=1e-5)
+    else:
+        torch.testing.assert_close(d_t, r_t, rtol=0, atol=1e-4)
+    torch.testing.assert_close(d_w, r_w, rtol=0, atol=1e-4)
+    d_t2, none = t_pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False)
+    assert none is None and d_t2.shape == d_t.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,b,k", EMPTY_BWD_CASES)
+def test_gather_pool_bwd_kernel_empty_shapes(cuda, n, d, b, k):
+    """The CUDA twin of ``test_gather_pool_bwd_empty_shapes`` (no launch)."""
+    _empty_bwd(cuda, n, d, b, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrt", [("table",), ("weights",), ("table", "weights")])
+def test_gather_pool_autograd_on_the_card(cuda, wrt):
+    """The CUDA twin of ``test_gather_pool_autograd_equals_autograd_through_plain``:
+    forward and backward kernels, one launch each."""
+    table, nbrs, w = _cuda_pool_inputs(cuda, 7, 500, 64, 300, 20, 450, "float32")
+    g = torch.randn((300, 64), generator=torch.Generator(cuda).manual_seed(1), device=cuda)
+    before = (t_pool.LAUNCHES, t_pool.BWD_LAUNCHES)
+    got = _grads_through(t_pool.gather_pool, table, nbrs, w, 450, g, wrt)
+    torch.cuda.synchronize()
+    assert (t_pool.LAUNCHES, t_pool.BWD_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    ref = _grads_through(t_pool.gather_pool_plain, table, nbrs, w, 450, g, wrt)
+    for a, b in zip(got, ref):
+        if b is None:
+            assert a is None
+        else:
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
 
 
 _BF16_ROWS_2CH = t_pool.max_resident_rows(256, 50, torch.bfloat16, chunks=2)
