@@ -6,8 +6,9 @@ Phases, one JSON line each:
 
 1. device  — the card (``nvidia-smi`` name and power limit; the raw line too)
    and its maximum SM clock (``clocks.max.sm``), which the bounds use.
-2. kernels — builds the three hand-written CUDA kernels from ``ops/csrc``
-   with ``nvcc`` (in parallel; the backward is checked in 6) and holds the
+2. kernels — builds the hand-written CUDA kernels from ``ops/csrc`` with
+   ``nvcc`` (one process a source, in parallel; the backward's two routes
+   are checked in 6) and holds the
    gather-pool forward and Hamming against their plain PyTorch versions
    at the serving shapes and at edge shapes (``gather_pool`` to 1e-4 abs on
    each of its routes, the routes bitwise equal to each other; Hamming
@@ -44,13 +45,20 @@ Phases, one JSON line each:
    backward kernels twice: layer 0 over the whole graph, the batch layer),
    the launch counts zeroed just before and read just after; the loss is
    finite, ``last_model`` reloads and evaluates to the same HR@k; then the
-   default (dense) config the same way. One step with the kernels and one
-   with ``gather_impl=xla`` from the same params, tables and draws (float32
-   compute) agree in loss, gradients and updated params. The backward kernel
-   is held against ``gather_pool_bwd_plain`` at the step's shapes (layer 0,
-   B = 3980; the batch layer, B = 1524 and 4596) and at edge shapes, and
-   timed (as in 2) at
-   layer 0 and B = 1524 beside its bound, the plain version and
+   default (dense) config the same way. Every backward call of the fit must
+   take the segment route. One step with the kernels and one with
+   ``gather_impl=xla`` from the same params, tables and draws (float32
+   compute) agree in loss, gradients and updated params; two identical
+   steps through the kernels are compared bit for bit (reported, with the
+   first op that differs, not gated). Both backward routes are held against
+   ``gather_pool_bwd_plain`` at the step's shapes (layer 0, B = 3980; the
+   batch layer, B = 1524 and 4596) and at edge shapes; there the segment
+   plan kernel must equal ``segment_plan_plain`` and the segment route must
+   be bitwise equal to ``gather_pool_bwd_segment_plain`` and across calls.
+   Both routes are timed (as in 2) at layer 0 and B = 1524 and with uniform
+   ids at layer 0's shape, beside the bound and an L2-byte estimate: the
+   segment kernel with its layout built ahead, its whole call with the
+   layout built in it, and the layout alone, the plain versions and
    ``embedding_bag``'s backward; the step's wall time, device time and busy
    share, and examples per second.
 7. check   — the outputs are finite, unit-norm and of the expected shape, and
@@ -150,6 +158,12 @@ def timed(fn, iters: int = 50, profile_calls: int = 20) -> dict:
     launches) and its kernels per call."""
     t = cuda_ms(fn, iters)
     prof = device_profile(fn, profile_calls)
+    for _ in range(2):
+        if prof["device_ms"] is not None:
+            break
+        # Now and then a window records no device events at all (seen on an
+        # H100 with torch 2.11): take another.
+        prof = device_profile(fn, profile_calls)
     t["profiler_ms"] = prof["device_ms"]
     t["kernels_per_call"] = prof["kernels_per_call"]
     return t
@@ -641,12 +655,14 @@ def fit_config(dev, overrides: dict, ckpt_dir: str) -> tuple:
     cfg = default_config().override({"data.source": "synthetic", "train.epochs": 2,
                                      "paths.checkpoint_dir": ckpt_dir, **overrides})
     eng = api.Engine(cfg, device=dev)
-    pool.LAUNCHES = pool.BWD_LAUNCHES = 0
+    pool.LAUNCHES = pool.BWD_LAUNCHES = pool.SEGMENT_LAUNCHES = pool.PLAN_LAUNCHES = 0
     t0 = time.perf_counter()
     out = eng.fit()
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
-    launches = {"gather_pool": pool.LAUNCHES, "gather_pool_bwd": pool.BWD_LAUNCHES}
+    launches = {"gather_pool": pool.LAUNCHES, "gather_pool_bwd": pool.BWD_LAUNCHES,
+                "gather_pool_bwd_segment": pool.SEGMENT_LAUNCHES,
+                "segment_plan": pool.PLAN_LAUNCHES}
     hist = out["history"]
     check(len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist), f"train loss {hist}")
     check([h["num_hard"] for h in hist] == [0, 1], "curriculum hard negatives")
@@ -680,8 +696,9 @@ def step_kernel_vs_xla(tr, q, p) -> dict:
     """One step through the kernels and one through the torch gather
     (``gather_impl=xla``), float32 compute, from the same params, optimizer
     state, tables and draws (negatives and keep masks). Loss within 1e-5
-    relative and gradients within 1e-4 relative norm (sums in another order,
-    the backward's atomics). Updated params: Adam divides each gradient
+    relative and gradients within 1e-4 relative norm (the kernels sum in
+    another order than the torch gather and its autograd). Updated params:
+    Adam divides each gradient
     element by its own size, so an element whose gradient is within rounding
     of zero may step apart by up to 2 lr; all are within that, and at most
     1e-4 of them differ by more than 1e-5."""
@@ -735,13 +752,23 @@ def bwd_inputs(gen, tr, rows, limit, dtype):
     return table, nbrs, w, g
 
 
-def check_bwd(pool, table, nbrs, w, limit, g, what: str) -> dict:
-    """The backward kernel against ``gather_pool_bwd_plain``: a f32 d_table
-    within 1e-4 (atomics add in a run-dependent order), a bf16 one within one
-    bf16 step of the plain version's, or within 1e-4 where the sum cancels
-    (a result so small that the two f32 sums' rounding exceeds its bf16
-    step), d_w within 1e-4."""
-    d_t, d_w = pool.gather_pool_bwd(table, nbrs, w, limit, g)
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bitwise equality (floats compared as their bit patterns)."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in ints:
+        return torch.equal(a.view(ints[a.dtype]), b.view(ints[b.dtype]))
+    return torch.equal(a, b)
+
+
+def check_bwd(pool, table, nbrs, w, limit, g, what: str, route: str) -> dict:
+    """One route of the backward against ``gather_pool_bwd_plain``: a f32
+    d_table within 1e-4 (sums in another order; the atomic route's in a
+    run-dependent one), a bf16 one within one bf16 step of the plain
+    version's, or within 1e-4 where the sum cancels (a result so small that
+    the two f32 sums' rounding exceeds its bf16 step), d_w within 1e-4."""
+    d_t, d_w = pool.gather_pool_bwd(table, nbrs, w, limit, g, route=route)
     r_t, r_w = pool.gather_pool_bwd_plain(table, nbrs, w, limit, g)
     torch.cuda.synchronize()
     err_t = (d_t.float() - r_t.float()).abs()
@@ -755,10 +782,107 @@ def check_bwd(pool, table, nbrs, w, limit, g, what: str) -> dict:
         out["d_table_over_one_step_max_abs_ref"] = (
             float(r_t.float().abs()[over].max()) if over.any() else 0.0)
         check(bool((err_t[over] <= 1e-4).all()),
-              f"gather_pool_bwd {what}: bf16 d_table beyond one step: {out}")
+              f"gather_pool_bwd {route} {what}: bf16 d_table beyond one step: {out}")
     else:
-        check(out["d_table_max_abs_err"] <= 1e-4, f"gather_pool_bwd {what}: {out}")
-    check(err_w <= 1e-4, f"gather_pool_bwd {what}: d_w {err_w}")
+        check(out["d_table_max_abs_err"] <= 1e-4, f"gather_pool_bwd {route} {what}: {out}")
+    check(err_w <= 1e-4, f"gather_pool_bwd {route} {what}: d_w {err_w}")
+    return out
+
+
+def check_segment(pool, table, nbrs, w, limit, g, what: str) -> float:
+    """The plan kernel's chunks, splits and totals equal to
+    ``segment_plan_plain``'s from the same row pointers; the segment route's
+    d_table, from a layout built ahead and from one built by the call,
+    bitwise equal to ``gather_pool_bwd_segment_plain`` and the calls
+    bitwise equal to each other. Returns the largest |kernel - plain| (0
+    when bitwise equal)."""
+    lay = pool.segment_layout(nbrs, limit)
+    plan = pool.segment_plan_plain(lay.row_ptr, lay.chunk, lay.chunks.shape[0],
+                                   lay.splits.shape[0])
+    c, s, _ = plan[2].tolist()
+    check(torch.equal(lay.totals, plan[2]) and torch.equal(lay.chunks[:c], plan[0][:c])
+          and torch.equal(lay.splits[:s], plan[1][:s]),
+          f"segment plan kernel {what}: differs from segment_plan_plain")
+    outs = [pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False, layout=lay)[0]
+            for _ in range(2)]
+    outs.append(pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False)[0])
+    ref = pool.gather_pool_bwd_segment_plain(table, nbrs, w, limit, g, lay)
+    torch.cuda.synchronize()
+    check(all(same_bits(o, outs[0]) for o in outs),
+          f"gather_pool_bwd segment {what}: two calls differ")
+    err = float((outs[0].float() - ref.float()).abs().max()) if ref.numel() else 0.0
+    check(same_bits(outs[0], ref),
+          f"gather_pool_bwd segment {what}: not bitwise equal to its plain version "
+          f"(max abs err {err})")
+    return err
+
+
+def first_divergent_op(fn) -> dict:
+    """Runs ``fn`` twice under a dispatch mode that keeps a copy of every
+    aten op's tensor outputs (``empty*`` skipped: their values are whatever
+    the memory held) and returns the first op whose outputs differ bitwise
+    between the runs, or None, with the count of ops recorded. The kernels
+    called through ctypes are not aten ops: their outputs show in the first
+    op that reads them."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    class Record(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if "empty" not in func.__name__:
+                self.outs.append((str(func), [t.detach().clone() for t in tree_flatten(out)[0]
+                                              if isinstance(t, torch.Tensor)]))
+            return out
+
+    runs = []
+    for _ in range(2):
+        with Record() as rec:
+            fn()
+        torch.cuda.synchronize()
+        runs.append(rec.outs)
+    first = next(({"index": i, "op": a[0]} for i, (a, b) in enumerate(zip(*runs))
+                  if a[0] != b[0] or not all(same_bits(x, y) for x, y in zip(a[1], b[1]))),
+                 None)
+    return {"ops_recorded": [len(r) for r in runs], "first": first}
+
+
+def step_determinism(tr, q, p) -> dict:
+    """Two identical steps through the kernels at the trainer's compute
+    dtype (same params, optimizer state, tables and draws): whether the
+    loss, the gradients and the updated params are bitwise equal, which
+    leaves differ, and, if any do, the first op whose outputs differ.
+    Reported, not gated: ops of the step beyond the backward kernel (cuBLAS,
+    PyTorch's index kernels) decide it too."""
+    from movie_recommendation_engine_tpu_torch.core import tree
+    from movie_recommendation_engine_tpu_torch.train.trainer import StepDraws
+
+    d = tr.draw_step(q, num_hard=1)
+    keep = [torch.rand((tr.table_rows, tr.cfg.model.hidden_dim), generator=tr.generator,
+                       device=q.device) < 1 - tr.cfg.model.dropout]
+    draws = [StepDraws(d.random, d.hard, keep)]
+    params0, opt0 = tr.params, tr.opt_state
+
+    def step():
+        tr.params, tr.opt_state = copy_state(params0, opt0)
+        loss, grads = tr.loss_and_grads(q, p, draws[0], 1.0)
+        tr.train_steps(q[None], p[None], tr.plateau.lr, 1.0, 1, draws=draws)
+        return loss, tree.flatten(grads), tree.flatten(tr.params)
+
+    (la, ga, pa), (lb, gb, pb) = step(), step()
+    out = {"compute_dtype": str(tr.compute_dtype), "loss_bitwise_equal": same_bits(la, lb),
+           "grads_differ": [k for k in ga if not same_bits(ga[k], gb[k])],
+           "params_differ": [k for k in pa if not same_bits(pa[k], pb[k])]}
+    out["grads_bitwise_equal"] = not out["grads_differ"]
+    out["params_bitwise_equal"] = not out["params_differ"]
+    if not (out["loss_bitwise_equal"] and out["grads_bitwise_equal"]
+            and out["params_bitwise_equal"]):
+        out["first_divergent_op"] = first_divergent_op(step)
+    tr.params, tr.opt_state = params0, opt0
     return out
 
 
@@ -773,8 +897,12 @@ def train_phase(dev) -> tuple[dict, dict]:
                                            "model.gather_impl": "pallas"}, d_gather)
         launches = gather_fit["launches"]
         steps = gather_fit["adam_steps"]
-        check(launches["gather_pool_bwd"] == 2 * steps,
-              f"gather_pool_bwd launched {launches['gather_pool_bwd']} times in {steps} steps")
+        check(launches["gather_pool_bwd"] == launches["gather_pool_bwd_segment"] == 2 * steps,
+              f"gather_pool_bwd launched {launches} in {steps} steps: expected 2 a step, "
+              "all on the segment route")
+        check(launches["segment_plan"] >= steps,
+              f"the segment plan kernel launched {launches['segment_plan']} times in {steps} "
+              "steps: expected one a step (the batch layer) and one a table refresh")
         check(launches["gather_pool"] == 2 * steps + 2 * 2,
               f"gather_pool launched {launches['gather_pool']} times in {steps} steps "
               "and 2 validation passes")
@@ -782,10 +910,13 @@ def train_phase(dev) -> tuple[dict, dict]:
         check(len(dense_eng.trainer.pool_mats) == 2 and dense_fit["launches"]["gather_pool"] == 0,
               "default config did not train on the dense rung")
     tr = eng.trainer
+    check(tr.bwd_layouts is not None and tr.bwd_layouts[0] is not None,
+          "the gather config's trainer built no backward layout for layer 0")
     pairs = tr._epoch_pairs(np.random.default_rng(0))
     q = torch.as_tensor(pairs[0, :, 0], dtype=torch.int32, device=dev)
     p = torch.as_tensor(pairs[0, :, 1], dtype=torch.int32, device=dev)
     xcheck = step_kernel_vs_xla(tr, q, p)
+    determinism = step_determinism(tr, q, p)
 
     # The step: wall time of single steps (host clock, synchronized), device
     # time and busy share over a profiled window, at epoch 1 (one hard
@@ -809,23 +940,29 @@ def train_phase(dev) -> tuple[dict, dict]:
                            # unprofiled step as well.
                            "busy_share_of_median_wall": (prof["device_ms"] or 0.0) / med}
 
-    # The backward kernel at the step's shapes: layer 0 (B = N = 3980) and
-    # the batch layer at epoch 0 (B = 1524) and with six hard negatives
-    # (B = 4596, batch nodes drawn over the movies).
+    # The backward at the step's shapes: layer 0 (B = N = 3980) and the batch
+    # layer at epoch 0 (B = 1524) and with six hard negatives (B = 4596,
+    # batch nodes drawn over the movies). Both routes against
+    # gather_pool_bwd_plain; the segment route bitwise against its own plain
+    # version and from call to call.
     gen = torch.Generator(device=dev).manual_seed(2)
     limit, n = tr.valid_limit, tr.table_rows
     shapes = {"layer0_b3980": torch.arange(n, device=dev),
               "batch_b1524": torch.randint(0, n, (1524,), generator=gen, device=dev),
               "batch_b4596": torch.randint(0, n, (4596,), generator=gen, device=dev)}
-    checks, timings, inputs = {}, {}, {}
+    checks, timings, inputs, seg_err = {}, {}, {}, 0.0
     for name, rows in shapes.items():
         for dtype in (torch.float32, torch.bfloat16):
             table, nbrs, w, g = bwd_inputs(gen, tr, rows, limit, dtype)
-            checks[f"{name}_{str(dtype)[6:]}"] = check_bwd(pool, table, nbrs, w, limit, g, name)
+            what = f"{name}_{str(dtype)[6:]}"
+            checks[what] = {rt: check_bwd(pool, table, nbrs, w, limit, g, what, rt)
+                            for rt in pool.BWD_ROUTES}
+            seg_err = max(seg_err, check_segment(pool, table, nbrs, w, limit, g, what))
             if dtype == torch.bfloat16:
                 inputs[name] = (table, nbrs, w, g)
     # Edge shapes: the scalar path (D not a multiple of 4) in both dtypes, K
-    # above one warp, valid_limit below N, ids outside [0, limit).
+    # above one warp, valid_limit below N (rows past it written as zeros),
+    # ids outside [0, limit).
     for n_e, d_e, b_e, k_e, lim_e, dt_e in [(96, 128, 19, 11, 96, torch.float32),
                                             (37, 100, 7, 6, 30, torch.bfloat16),
                                             (29, 37, 5, 70, 29, torch.float32),
@@ -834,15 +971,53 @@ def train_phase(dev) -> tuple[dict, dict]:
         table, nbrs, w = pool_inputs(gen, n_e, d_e, b_e, k_e, lim_e, dt_e, dev)
         g = torch.randn((b_e, d_e), generator=gen, device=dev)
         name = f"edge_{n_e}x{d_e}_b{b_e}_k{k_e}_{str(dt_e)[6:]}"
-        checks[name] = check_bwd(pool, table, nbrs, w, lim_e, g, name)
-    for name in ("layer0_b3980", "batch_b1524"):
-        table, nbrs, w, g = inputs[name]
+        checks[name] = {rt: check_bwd(pool, table, nbrs, w, lim_e, g, name, rt)
+                        for rt in pool.BWD_ROUTES}
+        seg_err = max(seg_err, check_segment(pool, table, nbrs, w, lim_e, g, name))
+
+    def bwd_times(table, nbrs, w, g, what: str) -> dict:
+        """Both routes' d_table: the segment kernel with its layout built
+        ahead (layer 0's case in the step), the segment route's whole call
+        with the layout built in it (the batch layer's case), the layout
+        alone, and the atomic route; bounds and L2-byte estimates."""
         b, k = nbrs.shape
         valid = int(((nbrs >= 0) & (nbrs < limit)).sum())
+        lay = pool.segment_layout(nbrs, limit)
         bound = roofline.gather_pool_bwd_bound(n, table.shape[1], b, k, 2, valid_slots=valid)
-        t = timed(lambda: pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False))
-        plain = cuda_ms(lambda: pool.gather_pool_bwd_plain(table, nbrs, w, limit, g,
-                                                            need_weights=False), iters=10)
+        seg = timed(lambda: pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False,
+                                                 layout=lay))
+        atomic = timed(lambda: pool.gather_pool_bwd(table, nbrs, w, limit, g,
+                                                    need_weights=False, route="atomic"))
+        # 20 calls, not 50: 50 calls of ~20 kernels each fill the card's
+        # launch queue behind the spin, and the host then blocks in it.
+        whole = timed(lambda: pool.gather_pool_bwd(table, nbrs, w, limit, g,
+                                                   need_weights=False), iters=20)
+        layout = timed(lambda: pool.segment_layout(nbrs, limit), iters=20)
+        layout["top"] = device_profile(lambda: pool.segment_layout(nbrs, limit), 10)["top"]
+        chunks, splits, parts = lay.totals.tolist()
+        l2 = {rt: roofline.gather_pool_bwd_l2_bytes(rt, n, table.shape[1], b, k, 2, valid,
+                                                    chunks, parts)
+              for rt in pool.BWD_ROUTES}
+        return {"shape": f"table[{n},{table.shape[1]}] bf16, nbrs/weights[{b},{k}], "
+                         f"g[{b},{table.shape[1]}] f32 ({what})",
+                "valid_slots": valid, "chunks": chunks, "split_rows": splits, "parts": parts,
+                "bound": bound,
+                "segment": {**seg, "bound_share": bound["ms"] / seg["ms"],
+                            "l2_bytes_estimate": l2["segment"],
+                            "l2_tb_per_s": l2["segment"] / seg["ms"] / 1e9},
+                "segment_with_layout_per_call": whole, "layout": layout,
+                "atomic": {**atomic, "bound_share": bound["ms"] / atomic["ms"],
+                           "l2_bytes_estimate": l2["atomic"],
+                           "l2_tb_per_s": l2["atomic"] / atomic["ms"] / 1e9}}
+
+    for name in ("layer0_b3980", "batch_b1524"):
+        table, nbrs, w, g = inputs[name]
+        t = bwd_times(table, nbrs, w, g, "the walk table's rows")
+        lay = pool.segment_layout(nbrs, limit)
+        t["plain_segment"] = cuda_ms(lambda: pool.gather_pool_bwd_segment_plain(
+            table, nbrs, w, limit, g, lay), iters=5)
+        t["plain_index_add"] = cuda_ms(lambda: pool.gather_pool_bwd_plain(
+            table, nbrs, w, limit, g, need_weights=False), iters=10)
         # Library yardstick: embedding_bag(mode="sum", per_sample_weights)'s
         # backward in the table, through torch.autograd.grad (bf16, as the
         # table: the library takes one dtype for the table and the weights).
@@ -851,30 +1026,33 @@ def train_phase(dev) -> tuple[dict, dict]:
         bag = torch.nn.functional.embedding_bag(ids, tb, per_sample_weights=w.to(table.dtype),
                                                 mode="sum")
         gb = g.to(table.dtype)
-        lib = timed(lambda: torch.autograd.grad(bag, tb, gb, retain_graph=True))
-        timings[name] = {**t, "bound": bound, "bound_share": bound["ms"] / t["ms"],
-                         "valid_slots": valid, "plain": plain, "library": lib,
-                         "shape": f"table[{n},{table.shape[1]}] bf16, nbrs/weights[{b},{k}], "
-                                  f"g[{b},{table.shape[1]}] f32"}
+        t["library"] = timed(lambda: torch.autograd.grad(bag, tb, gb, retain_graph=True))
+        timings[name] = t
     # Diagnostic: layer 0's shape with uniform ids, all valid (no hub rows):
-    # how much of the time is the hubs' contention.
+    # how much of each route's time is the ids' skew.
     table, nbrs, w, g = inputs["layer0_b3980"]
     uniform = torch.randint(0, limit, nbrs.shape, generator=gen, device=dev, dtype=torch.int32)
-    timings["layer0_uniform_ids"] = cuda_ms(
-        lambda: pool.gather_pool_bwd(table, uniform, w, limit, g, need_weights=False))
+    timings["layer0_uniform_ids"] = bwd_times(table, uniform, w, g, "uniform ids")
     emit("train", gather=gather_fit, dense=dense_fit, step_kernel_vs_xla=xcheck,
-         steps=steps_out, bwd_checks=checks, bwd_timings=timings,
+         step_determinism=determinism, steps=steps_out, bwd_checks=checks,
+         bwd_segment_bitwise=True, bwd_timings=timings,
          tf32={"matmul": torch.backends.cuda.matmul.allow_tf32,
                "cudnn": torch.backends.cudnn.allow_tf32})
-    a = timings["layer0_b3980"]
-    errs = [v for c in checks.values() for k, v in c.items() if k.endswith("abs_err")]
-    return {"name": "gather_pool_bwd", "route": "cuda",
-            "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool_bwd.cu",
+    a, bl = timings["layer0_b3980"], timings["batch_b1524"]
+    err_plain = max(c["segment"]["d_table_max_abs_err"] for c in checks.values())
+    return {"name": "gather_pool_bwd", "route": "cuda", "plan_route": "segment",
+            "source": "movie_recommendation_engine_tpu_torch/ops/csrc/gather_pool_bwd_segment.cu",
             "replaces": "movie_recommendation_engine_tpu/ops/pallas/pool.py:229",
-            "launches": launches["gather_pool_bwd"], "max_abs_err": max(errs),
-            "ms": a["ms"], "profiler_ms": a["profiler_ms"], "host_us": a["host_us"],
-            "ms_batch_b1524": timings["batch_b1524"]["ms"],
-            "plain_ms": a["plain"]["ms"], "bound_ms": a["bound"]["ms"],
+            "launches": launches["gather_pool_bwd"],
+            "launches_segment": launches["gather_pool_bwd_segment"],
+            "launches_plan": launches["segment_plan"],
+            "max_abs_err": seg_err, "max_abs_err_vs_index_add": err_plain,
+            "ms": a["segment"]["ms"], "profiler_ms": a["segment"]["profiler_ms"],
+            "host_us": a["segment"]["host_us"], "layout_ms": a["layout"]["ms"],
+            "atomic_ms": a["atomic"]["ms"],
+            "ms_batch_b1524": bl["segment_with_layout_per_call"]["ms"],
+            "atomic_ms_batch_b1524": bl["atomic"]["ms"],
+            "plain_ms": a["plain_segment"]["ms"], "bound_ms": a["bound"]["ms"],
             "bound_by": a["bound"]["by"], "library_ms": a["library"]["ms"]}, launches
 
 

@@ -118,3 +118,24 @@ def gather_pool_bwd_bound(n: int, d: int, b: int, k: int, table_bytes: int,
     flops = 2 * slots * d
     ms, by = bound_ms(nbytes, (flops, FP32_OPS_PER_S))
     return {"ms": ms, "by": by, "bytes": nbytes, "flops": flops, "atomics": slots * d}
+
+
+def gather_pool_bwd_l2_bytes(route: str, n: int, d: int, b: int, k: int, table_bytes: int,
+                             valid_slots: int, chunks: int = 0, parts: int = 0) -> int:
+    """Estimated bytes a gather-pool backward call (``d_table`` only) moves
+    through L2, beside ``gather_pool_bwd_bound``, which counts each byte
+    once. ``segment`` (given its layout's ``chunks`` and ``parts``): the
+    f32 row of g of every valid slot, each slot's index, id-sorted position
+    and weight, the 16-byte chunk descriptors, the f32 partials written and
+    read once, and d_table written once in the table's dtype. ``atomic``:
+    g, the ids and weights read once, the f32 d_table zeroed, one 4-byte
+    atomic add per valid slot and column (read and written by the L2's
+    atomic unit), and the cast to the table's dtype (f32 read, result
+    written)."""
+    if route == "segment":
+        return (valid_slots * (d * 4 + 12) + chunks * 16 + parts * d * 8
+                + n * d * table_bytes)
+    if route == "atomic":
+        return (b * d * 4 + b * k * 8 + n * d * 4 + valid_slots * d * 8
+                + n * d * (4 + table_bytes))
+    raise ValueError(f"unknown gather_pool_bwd route {route!r}")

@@ -22,7 +22,7 @@ from typing import Any
 
 import torch
 
-from ..ops.pool import gather_pool
+from ..ops.pool import SegmentLayout, gather_pool
 
 Params = dict[str, Any]
 
@@ -109,13 +109,16 @@ def mlp_forward(params: Params, x: torch.Tensor, dtype=torch.bfloat16) -> torch.
 
 def importance_pool(h_table: torch.Tensor, nbrs: torch.Tensor,
                     weights: torch.Tensor, valid_limit: int | None = None,
-                    dtype=torch.bfloat16, impl: str = "xla") -> torch.Tensor:
+                    dtype=torch.bfloat16, impl: str = "xla",
+                    bwd_layout: SegmentLayout | None = None) -> torch.Tensor:
     """Masked weighted-sum pooling, [B, D] in ``dtype``.
 
     Masks ids ``>= limit`` and clamps ids into the table (a negative id keeps
     its weight and reads row 0, as in the JAX function). ``impl="pallas"``
     runs ``ops.pool.gather_pool`` (the CUDA kernel on the card), which also
-    masks ids ``< 0``; ``"xla"`` is the gather + einsum formulation."""
+    masks ids ``< 0``; ``"xla"`` is the gather + einsum formulation.
+    ``bwd_layout`` (``impl="pallas"`` only) is ``segment_layout(nbrs,
+    limit)``, built ahead for the backward kernel."""
     n = h_table.shape[0]
     limit = n if valid_limit is None else min(valid_limit, n)
     valid = nbrs < limit
@@ -124,10 +127,12 @@ def importance_pool(h_table: torch.Tensor, nbrs: torch.Tensor,
     w = torch.where(wsum > 0, w / wsum.clamp_min(_EPS), 0.0)
     if impl == "pallas":
         out = gather_pool(h_table.to(dtype).contiguous(), nbrs.to(torch.int32).contiguous(),
-                          w.float().contiguous(), limit)
+                          w.float().contiguous(), limit, bwd_layout=bwd_layout)
         return out.to(dtype)
     if impl != "xla":
         raise ValueError(f"gather impl must be 'xla' or 'pallas', got {impl!r}")
+    if bwd_layout is not None:
+        raise ValueError("bwd_layout is for the kernel's backward (impl='pallas')")
     feats = h_table.to(dtype)[nbrs.clamp(0, n - 1).long()]        # [B, K, D]
     out = torch.bmm(w.to(dtype).float().unsqueeze(1), feats.float()).squeeze(1)
     return out.to(dtype)
@@ -201,11 +206,12 @@ def _hidden_dropout(h: torch.Tensor, i: int, rate: float, generator, keep) -> to
     return _dropout(h, rate, generator, None if keep is None else keep[i])
 
 
-def _gather_layer(h, nbrs, w, valid_limit, dtype, aggregator, gather_impl):
+def _gather_layer(h, nbrs, w, valid_limit, dtype, aggregator, gather_impl, bwd_layout=None):
     if aggregator != "importance":
         raise NotImplementedError(
             f"aggregator {aggregator!r} is not ported yet (ROADMAP queue 1)")
-    return importance_pool(h, nbrs, w, valid_limit, dtype, impl=gather_impl)
+    return importance_pool(h, nbrs, w, valid_limit, dtype, impl=gather_impl,
+                           bwd_layout=bwd_layout)
 
 
 def pooled_forward_dense(params: Params, x_table: torch.Tensor,
@@ -264,13 +270,17 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
                          generator: torch.Generator | None = None,
                          dropout_keep: list[torch.Tensor] | None = None,
                          aggregator: str = "importance", pool_mats=(),
-                         gather_impl: str = "xla") -> torch.Tensor:
+                         gather_impl: str = "xla",
+                         bwd_layouts: list[SegmentLayout | None] | None = None
+                         ) -> torch.Tensor:
     """Training-step forward: layers 0..L-2 over the full graph (their output
     is the table the next layer gathers from), then the final conv and the
     output projection for ``batch_nodes`` [B] only. Batch ids are clamped into
     the table, as JAX's ``take(..., mode="clip")``. ``pool_mats`` gives dense
     pooling for a prefix of the layers (hybrid mode), the final one included
-    when it covers every layer."""
+    when it covers every layer. ``bwd_layouts[i]`` (``gather_impl="pallas"``)
+    is the backward kernel's layout of full-graph gather layer ``i``, or None;
+    the batch layer's rows change every step, so its backward builds its own."""
     convs = params["convs"]
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
     for i, conv in enumerate(convs[:-1]):
@@ -280,7 +290,7 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
             h_neigh = _gather_layer(
                 h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
                 layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
-                aggregator, gather_impl)
+                aggregator, gather_impl, bwd_layouts[i] if bwd_layouts else None)
         h = _conv_block(conv, h, h_neigh, dtype)
         h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
     last, li = convs[-1], len(convs) - 1

@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-KERNELS = ("gather_pool", "gather_pool_bwd", "hamming")
+KERNELS = ("gather_pool", "gather_pool_bwd", "gather_pool_bwd_segment", "hamming")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,5 +1,7 @@
 // Backward of the weighted row gather-pool, for Hopper (sm_90a), bound through
-// ctypes.
+// ctypes: route "atomic" of ops/pool.py:gather_pool_bwd for d_table (the
+// default route, "segment", is gather_pool_bwd_segment.cu), and d_w on every
+// route.
 //
 // Replaces the gradient of the TPU kernel movie_recommendation_engine_tpu/ops/
 // pallas/pool.py:gather_pool, which JAX writes in XLA beside the Pallas forward
@@ -37,8 +39,9 @@
 // bf16 step; d_w is deterministic. The ids are skewed (the most frequent 256
 // ids of a walk table hold about a third of its valid slots), so the rows of
 // hub nodes take many adds from many warps at once, and those adds serialize
-// at their L2 slice. A deterministic alternative, a segment reduction over ids
-// sorted once per neighbourhood refresh, is later work (ROADMAP).
+// at their L2 slice. The segment route sums the same d_table in a fixed order
+// with no atomics, and on an H100 it is also the faster where its layout is
+// built ahead (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

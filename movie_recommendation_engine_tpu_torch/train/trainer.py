@@ -37,6 +37,7 @@ from ..graph import features as feat_mod
 from ..graph.dataset import MovieLensData
 from ..graph.split import corated_item_pairs
 from ..models import losses, pinsage
+from ..ops.pool import segment_layout
 from ..sampling import negative, random_walk as rw
 from . import optim
 
@@ -147,6 +148,7 @@ class Trainer:
         self.best_metric = -float("inf")
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         self.pool_mats: tuple = ()
+        self.bwd_layouts: list | None = None
         # Steps per block of an epoch (see train_epoch).
         self.steps_per_call = 8
 
@@ -191,7 +193,9 @@ class Trainer:
         """Use the given per-layer ([N, K] ids, [N, K] weights) tables (tensors
         or arrays) and build the pool operators the config's rung asks for:
         ``dense`` (one [N, N] matrix per layer), ``hybrid`` (a matrix for
-        layers 0..L-2, gather for the last) or ``gather`` (none)."""
+        layers 0..L-2, gather for the last) or ``gather`` (none). With
+        ``gather_impl="pallas"`` it also builds the backward kernel's layout
+        (``ops.pool.segment_layout``) of each full-graph gather layer."""
         cfg = self.cfg
         def on_device(x, dtype):
             return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
@@ -200,6 +204,7 @@ class Trainer:
         self.nbr_tables = [(on_device(nb, torch.int32), on_device(w, torch.float32))
                            for nb, w in tables]
         self.pool_mats = ()
+        self.bwd_layouts = None
         impl = cfg.model.pool_impl
         n_layers = cfg.model.num_layers
         if cfg.model.aggregator_type != "importance" or cfg.train.train_path == "mlp":
@@ -223,6 +228,14 @@ class Trainer:
                                       valid_limit=self.valid_limit,
                                       dtype=torch.bfloat16)
             for nbrs, w in self.nbr_tables[:n_dense])
+        if self.gather_impl == "pallas":
+            # Layers 0..L-2 pool over the whole graph with the same table
+            # until the next refresh (the last layer pools the batch's rows).
+            limit = min(self.valid_limit, self.table_rows)
+            self.bwd_layouts = [
+                None if i < n_dense else segment_layout(
+                    self.nbr_tables[min(i, len(self.nbr_tables) - 1)][0], limit)
+                for i in range(n_layers - 1)]
 
     # ---- train step -------------------------------------------------------
 
@@ -264,7 +277,9 @@ class Trainer:
                 params, self.x_table, [t[0] for t in self.nbr_tables],
                 [t[1] for t in self.nbr_tables], all_nodes, valid_limit=self.valid_limit,
                 dtype=self.compute_dtype, aggregator=cfg.model.aggregator_type,
-                pool_mats=self.pool_mats, gather_impl=self.gather_impl, **drop)
+                pool_mats=self.pool_mats, gather_impl=self.gather_impl,
+                bwd_layouts=self.bwd_layouts if self.gather_impl == "pallas" else None,
+                **drop)
         q_emb, p_emb = emb[:b], emb[b:2 * b]
         r_emb = emb[2 * b:2 * b + num_rand]
         h_emb = (emb[2 * b + num_rand:].reshape(b, draws.hard.shape[1], -1)

@@ -86,3 +86,22 @@ def test_gather_pool_bwd_bound_at_the_training_layer_0():
     v = roofline.gather_pool_bwd_bound(3980, 256, 3980, 50, 2, valid_slots=186_000)
     assert v["atomics"] == 186_000 * 256 and v["bytes"] == b["bytes"]
     assert v["flops"] == 2 * 186_000 * 256 and v["ms"] == b["ms"]
+
+
+def test_gather_pool_bwd_l2_bytes_at_the_training_layer_0():
+    """186,000 valid slots at N = B = 3980, K = 50, D = 256, bf16 table."""
+    n = b = 3980
+    # segment: a 1 KB f32 row of g per valid slot plus its slot index,
+    # sorted position and weight (12 B); 8,000 16-byte chunks; 5,000 f32
+    # partial rows written and read; d_table written once in bf16.
+    seg = roofline.gather_pool_bwd_l2_bytes("segment", n, 256, b, 50, 2, 186_000,
+                                            chunks=8_000, parts=5_000)
+    assert seg == 186_000 * 1036 + 8_000 * 16 + 5_000 * 2048 + n * 512 == 205_101_760
+    # atomic: g, ids and weights once; f32 d_table zeroed; 4 B read and
+    # written per added element; the cast reads f32 and writes bf16.
+    atomic = roofline.gather_pool_bwd_l2_bytes("atomic", n, 256, b, 50, 2, 186_000)
+    assert atomic == n * 1024 + b * 400 + n * 1024 + 186_000 * 2048 + n * 1536 == 396_784_320
+    bound = roofline.gather_pool_bwd_bound(n, 256, b, 50, 2, valid_slots=186_000)
+    assert min(seg, atomic) >= bound["bytes"]
+    with pytest.raises(ValueError):
+        roofline.gather_pool_bwd_l2_bytes("fast", n, 256, b, 50, 2, 186_000)

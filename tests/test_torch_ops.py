@@ -195,6 +195,192 @@ def test_gather_pool_bwd_limits():
         t_pool._bwd_limits(10, 8, 2**26, 64)
     with pytest.raises(ValueError, match="2\\*\\*31"):
         t_pool._bwd_limits(10, 2**31, 10, 4)
+    t_pool._bwd_limits(10, 8, 10, 4, t_pool.MAX_CHUNK)
+    with pytest.raises(ValueError, match="chunk=.*shared memory"):
+        t_pool._bwd_limits(10, 8, 10, 4, t_pool.MAX_CHUNK + 1)
+    nbrs = torch.zeros(3, 2, dtype=torch.int32)
+    for chunk in (0, t_pool.MAX_CHUNK + 1):
+        with pytest.raises(ValueError, match="chunk"):
+            t_pool.segment_layout(nbrs, 4, chunk)
+
+
+# ---------------------------------------------------------------------------
+# The segment route: the walk table's transpose and the sum in its order
+# ---------------------------------------------------------------------------
+
+def _skewed_walk(seed, n, b, k, limit):
+    """Walk-shaped ids: Zipf-distributed over a permutation of the rows, so a
+    few hub ids take most slots and many take none; the last quarter of each
+    row is the masked sentinel n, as a walk table's short rows are."""
+    rng = np.random.default_rng(seed)
+    nbrs = rng.permutation(limit)[np.minimum(rng.zipf(1.5, (b, k)) - 1, limit - 1)]
+    nbrs[:, k - k // 4:] = n
+    table = rng.standard_normal((n, 24)).astype(np.float32)
+    return table, nbrs.astype(np.int32), rng.random((b, k)).astype(np.float32)
+
+
+# (inputs, valid_limit, chunk): every POOL_CASES shape with chunks of 2
+# (so ids split), a skewed walk-shaped table at the default chunk (a hub id
+# spans more than three chunks), valid_limit below N, and no output rows.
+SEGMENT_CASES = {
+    **{f"pool_{n}x{d}_b{b}_k{k}_limit{lim}_{dt}": (_pool_inputs(4, n, d, b, k, lim), lim, 2)
+       for n, d, b, k, lim, dt in POOL_CASES},
+    "skewed_walk": (_skewed_walk(8, 60, 64, 12, 60), 60, t_pool.SEGMENT_CHUNK),
+    "skewed_walk_limit_below_n": (_skewed_walk(9, 60, 64, 12, 45), 45, 5),
+    "no_rows": ((np.zeros((6, 8), np.float32), np.zeros((0, 4), np.int32),
+                 np.zeros((0, 4), np.float32)), 6, 3),
+}
+
+
+def _segment_layout_ref(nbrs, limit, chunk):
+    """``segment_layout`` by loops over ids in numpy."""
+    flat = nbrs.reshape(-1)
+    row_ptr, slots, chunks, splits, parts = [0], [], [], [], 0
+    for r in range(limit):
+        mine = np.flatnonzero(flat == r)           # ascending; ids outside [0, limit) never match
+        start = len(slots)
+        slots.extend(mine.tolist())
+        row_ptr.append(len(slots))
+        pieces = [(start + i, start + min(i + chunk, len(mine)))
+                  for i in range(0, len(mine), chunk)] or [(start, start)]
+        if len(pieces) == 1:
+            chunks.append((r, *pieces[0], -1))
+            continue
+        splits.append((r, parts, parts + len(pieces)))
+        for a, b in pieces:
+            chunks.append((r, a, b, parts))
+            parts += 1
+    return (np.array(row_ptr), np.array(slots, np.int64), np.array(chunks).reshape(-1, 4),
+            np.array(splits, np.int64).reshape(-1, 3), parts)
+
+
+def _plan(lay):
+    """A layout's slots, chunks and splits cut to its totals (numpy)."""
+    c, s, _ = lay.totals.tolist()
+    v = int(lay.row_ptr[-1])
+    return lay.slots[:v].numpy(), lay.chunks[:c].numpy(), lay.splits[:s].numpy()
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_layout_matches_numpy(case):
+    """Row pointers, slots, chunks, splits and totals as the loops over ids
+    make them; the arrays are sized by bounds known from the shape, the
+    masked slots sort last in ``slots``, and the rows past the totals are 0
+    (``segment_plan_plain``)."""
+    (_, nbrs, _), limit, chunk = SEGMENT_CASES[case]
+    got = t_pool.segment_layout(torch.from_numpy(nbrs), limit, chunk)
+    row_ptr, slots, chunks, splits, parts = _segment_layout_ref(nbrs, limit, chunk)
+    bk = nbrs.size
+    assert got.shape == nbrs.shape and (got.limit, got.chunk) == (limit, chunk)
+    assert got.totals.tolist() == [len(chunks), len(splits), parts]
+    assert got.chunks.shape == (limit + bk // chunk, 4)
+    assert got.splits.shape == (min(limit, bk // (chunk + 1)), 3)
+    for t in got[3:]:
+        assert t.dtype == torch.int32
+    np.testing.assert_array_equal(got.row_ptr.numpy(), row_ptr)
+    for t, ref in zip(_plan(got), (slots, chunks, splits)):
+        np.testing.assert_array_equal(t, ref)
+    np.testing.assert_array_equal(np.sort(got.slots.numpy()), np.arange(bk))
+    assert not got.chunks[len(chunks):].any() and not got.splits[len(splits):].any()
+    if case == "skewed_walk":       # what the case is for: a hub and empty ids
+        spans = np.bincount(chunks[:, 0], minlength=limit)
+        assert spans.max() > 3 and (chunks[:, 1] == chunks[:, 2]).any()
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+def test_segment_layout_covers_every_valid_slot_once(case):
+    """The chunks tile the valid slots in order, each at most ``chunk``
+    long; every id in [0, limit) has a chunk; every valid slot appears once,
+    under its own id; every partial is written by one chunk and read by its
+    row."""
+    (_, nbrs, _), limit, chunk = SEGMENT_CASES[case]
+    lay = t_pool.segment_layout(torch.from_numpy(nbrs), limit, chunk)
+    slots, ch, sp = _plan(lay)
+    flat = nbrs.reshape(-1)
+    valid = np.flatnonzero((flat >= 0) & (flat < limit))
+    np.testing.assert_array_equal(np.sort(slots), valid)
+    assert ch[0, 1] == 0 and ch[-1, 2] == slots.size
+    np.testing.assert_array_equal(ch[1:, 1], ch[:-1, 2])
+    assert ((ch[:, 2] - ch[:, 1] >= 0) & (ch[:, 2] - ch[:, 1] <= chunk)).all()
+    np.testing.assert_array_equal(np.unique(ch[:, 0]), np.arange(limit))
+    for row, a, b, _ in ch:
+        assert (flat[slots[a:b]] == row).all()
+    parts = ch[ch[:, 3] >= 0, 3]
+    np.testing.assert_array_equal(parts, np.arange(int(lay.totals[2])))
+    for row, p0, p1 in sp:
+        np.testing.assert_array_equal(ch[ch[:, 0] == row, 3], np.arange(p0, p1))
+
+
+@pytest.mark.parametrize("case", SEGMENT_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_segment_plain_matches_bwd_plain_and_gather_pool_ad(jax_ops, case, dtype):
+    """``gather_pool_bwd_segment_plain``'s d_table against
+    ``gather_pool_bwd_plain`` (``index_add_``) and ``jax.grad`` of
+    ``gather_pool_ad`` (Pallas forward in interpret mode): f32 1e-5, bf16
+    one step (each rounds one f32 sum, taken in another order)."""
+    import jax
+    import jax.numpy as jnp
+
+    _, j_pool = jax_ops
+    (table, nbrs, w), limit, chunk = SEGMENT_CASES[case]
+    if dtype == "bfloat16":
+        table = _bf16_round(table)
+    b, d = nbrs.shape[0], table.shape[1]
+    g = np.random.default_rng(5).standard_normal((b, d)).astype(np.float32)
+    td = getattr(torch, dtype)
+    tt, nb, ww, gg = (torch.from_numpy(table).to(td), torch.from_numpy(nbrs),
+                      torch.from_numpy(w), torch.from_numpy(g))
+    lay = t_pool.segment_layout(nb, limit, chunk)
+    got = t_pool.gather_pool_bwd_segment_plain(tt, nb, ww, limit, gg, lay)
+    assert got.dtype == td and got.shape == tt.shape
+    ref, _ = t_pool.gather_pool_bwd_plain(tt, nb, ww, limit, gg, need_weights=False)
+    _assert_d_table(got, ref, dtype)
+    if b == 0:
+        assert not got.float().any()
+        return
+
+    def f(t):
+        return jnp.sum(j_pool.gather_pool_ad(t, jnp.asarray(nbrs), jnp.asarray(w), limit,
+                                             4, True) * g)
+
+    j_ref = jax.grad(f)(jnp.asarray(table, getattr(jnp, dtype)))
+    _assert_d_table(got, torch.from_numpy(np.array(j_ref, np.float32)).to(td), dtype)
+
+
+def test_gather_pool_bwd_routes_and_layouts_are_checked():
+    """``route=`` takes "segment" or "atomic" only, a layout only with
+    "segment", and a layout built for another shape or limit raises (in the
+    forward and in the backward); on CPU tensors both routes are
+    ``gather_pool_bwd_plain``."""
+    table, nbrs, w, g = (torch.from_numpy(x) for x in _pool_grad_inputs(40, 24, 9, 6, 33,
+                                                                         "float32"))
+    ref = t_pool.gather_pool_bwd_plain(table, nbrs, w, 33, g)
+    lay = t_pool.segment_layout(nbrs, 33)
+    for route, layout in (("segment", None), ("segment", lay), ("atomic", None)):
+        got = t_pool.gather_pool_bwd(table, nbrs, w, 33, g, route=route, layout=layout)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    with pytest.raises(ValueError, match="route"):
+        t_pool.gather_pool_bwd(table, nbrs, w, 33, g, route="fast")
+    with pytest.raises(ValueError, match="segment route"):
+        t_pool.gather_pool_bwd(table, nbrs, w, 33, g, route="atomic", layout=lay)
+    for wrong in (t_pool.segment_layout(nbrs, 32), t_pool.segment_layout(nbrs[:8], 33)):
+        with pytest.raises(ValueError, match="layout was built for"):
+            t_pool.gather_pool_bwd(table, nbrs, w, 33, g, layout=wrong)
+        with pytest.raises(ValueError, match="layout was built for"):
+            t_pool.gather_pool(table.requires_grad_(), nbrs, w, 33, bwd_layout=wrong)
+
+
+def test_gather_pool_autograd_takes_a_bwd_layout():
+    """``gather_pool(..., bwd_layout=)`` gives the gradients it gives
+    without one."""
+    table, nbrs, w, g = (torch.from_numpy(x) for x in _pool_grad_inputs(40, 24, 9, 6, 33,
+                                                                         "float32"))
+    lay = t_pool.segment_layout(nbrs, 33)
+    with_layout = _grads_through(
+        lambda t, nb, ww, lim: t_pool.gather_pool(t, nb, ww, lim, bwd_layout=lay),
+        table, nbrs, w, 33, g, ("table", "weights"))
+    without = _grads_through(t_pool.gather_pool, table, nbrs, w, 33, g, ("table", "weights"))
+    assert all(torch.equal(a, b) for a, b in zip(with_layout, without))
 
 
 def test_gather_pool_rejects_bad_limit():
@@ -289,14 +475,16 @@ CUDA_BWD_CASES = CUDA_POOL_CASES + [
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", t_pool.BWD_ROUTES)
 @pytest.mark.parametrize("n,d,b,k,limit,dtype", CUDA_BWD_CASES)
-def test_gather_pool_bwd_kernel_matches_plain(cuda, n, d, b, k, limit, dtype):
-    """d_table within 1e-4 (f32; atomics add in a run-dependent order) or one
-    bf16 step, d_w within 1e-4; one launch per call."""
+def test_gather_pool_bwd_kernel_matches_plain(cuda, n, d, b, k, limit, dtype, route):
+    """Either route: d_table within 1e-4 (f32; sums in another order, the
+    atomic route's in a run-dependent one) or one bf16 step, d_w within
+    1e-4; one counted launch per call."""
     table, nbrs, w = _cuda_pool_inputs(cuda, 6, n, d, b, k, limit, dtype)
     g = torch.randn((b, d), generator=torch.Generator(cuda).manual_seed(0), device=cuda)
     before = t_pool.BWD_LAUNCHES
-    d_t, d_w = t_pool.gather_pool_bwd(table, nbrs, w, limit, g)
+    d_t, d_w = t_pool.gather_pool_bwd(table, nbrs, w, limit, g, route=route)
     torch.cuda.synchronize()
     assert t_pool.BWD_LAUNCHES == before + 1
     r_t, r_w = t_pool.gather_pool_bwd_plain(table, nbrs, w, limit, g)
@@ -306,8 +494,70 @@ def test_gather_pool_bwd_kernel_matches_plain(cuda, n, d, b, k, limit, dtype):
     else:
         torch.testing.assert_close(d_t, r_t, rtol=0, atol=1e-4)
     torch.testing.assert_close(d_w, r_w, rtol=0, atol=1e-4)
-    d_t2, none = t_pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False)
+    d_t2, none = t_pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False,
+                                        route=route)
     assert none is None and d_t2.shape == d_t.shape
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _segment_bitwise(table, nbrs, w, limit, g, chunk=t_pool.SEGMENT_CHUNK):
+    """The plan kernel's layout equal to the one built on the CPU (plain
+    plan), and the segment kernel's d_table (layout built ahead, and built
+    by the call) bitwise equal to ``gather_pool_bwd_segment_plain`` and
+    across calls, one counted launch each."""
+    plans = t_pool.PLAN_LAUNCHES
+    lay = t_pool.segment_layout(nbrs, limit, chunk)
+    assert t_pool.PLAN_LAUNCHES == plans + 1
+    cpu = t_pool.segment_layout(nbrs.cpu(), limit, chunk)
+    assert torch.equal(lay.totals.cpu(), cpu.totals)
+    assert torch.equal(lay.row_ptr.cpu(), cpu.row_ptr)
+    for a, b in zip(_plan(lay._replace(**{f: getattr(lay, f).cpu() for f in
+                                          ("row_ptr", "slots", "chunks", "splits", "totals")})),
+                    _plan(cpu)):
+        np.testing.assert_array_equal(a, b)
+    before = t_pool.SEGMENT_LAUNCHES
+    outs = [t_pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False,
+                                   layout=lay)[0] for _ in range(2)]
+    if chunk == t_pool.SEGMENT_CHUNK:
+        outs.append(t_pool.gather_pool_bwd(table, nbrs, w, limit, g, need_weights=False)[0])
+    torch.cuda.synchronize()
+    assert t_pool.SEGMENT_LAUNCHES == before + len(outs)
+    ref = t_pool.gather_pool_bwd_segment_plain(table, nbrs, w, limit, g, lay)
+    assert outs[0].dtype == table.dtype
+    for out in outs:
+        assert torch.equal(_bits(out), _bits(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [t_pool.SEGMENT_CHUNK, 3])
+@pytest.mark.parametrize("n,d,b,k,limit,dtype", CUDA_BWD_CASES)
+def test_gather_pool_bwd_segment_kernel_is_bitwise(cuda, n, d, b, k, limit, dtype, chunk):
+    """The segment route against its plain version, bitwise, and from run to
+    run, at the default chunk and at chunks of 3 (most ids split)."""
+    table, nbrs, w = _cuda_pool_inputs(cuda, 8, n, d, b, k, limit, dtype)
+    g = torch.randn((b, d), generator=torch.Generator(cuda).manual_seed(2), device=cuda)
+    _segment_bitwise(table, nbrs, w, limit, g, chunk)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_pool_bwd_segment_kernel_skewed_and_unaligned(cuda, dtype):
+    """A walk-shaped table whose hub spans many chunks (limit below N: the
+    rows past it are written as zeros), with an aligned g, and with a g view
+    that is not 16-byte aligned (the scalar path)."""
+    table, nbrs, w = _skewed_walk(10, 700, 600, 40, 650)
+    t = torch.from_numpy(table).to(cuda, getattr(torch, dtype))
+    nb, ww = torch.from_numpy(nbrs).to(cuda), torch.from_numpy(w).to(cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    g = torch.randn((600, 24), generator=gen, device=cuda)
+    _segment_bitwise(t, nb, ww, 650, g)
+    flat = torch.randn(600 * 24 + 1, generator=gen, device=cuda)
+    g_view = flat[1:].view(600, 24)
+    assert g_view.data_ptr() % 16 != 0
+    _segment_bitwise(t, nb, ww, 650, g_view)
 
 
 @pytest.mark.cuda
@@ -334,6 +584,26 @@ def test_gather_pool_autograd_on_the_card(cuda, wrt):
             assert a is None
         else:
             torch.testing.assert_close(a, b, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_gather_pool_autograd_through_bwd_layout_on_the_card(cuda):
+    """``GatherPoolFunction`` with a layout built ahead: the table's gradient
+    is the segment kernel's, bitwise equal to its plain version and to the
+    gradient without a layout (built in the backward)."""
+    table, nbrs, w = _cuda_pool_inputs(cuda, 9, 500, 64, 300, 20, 450, "bfloat16")
+    g = torch.randn((300, 64), generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    lay = t_pool.segment_layout(nbrs, 450)
+    before = t_pool.SEGMENT_LAUNCHES
+    with_layout, _ = _grads_through(
+        lambda t, nb, ww, lim: t_pool.gather_pool(t, nb, ww, lim, bwd_layout=lay),
+        table, nbrs, w, 450, g, ("table",))
+    without, _ = _grads_through(t_pool.gather_pool, table, nbrs, w, 450, g, ("table",))
+    torch.cuda.synchronize()
+    assert t_pool.SEGMENT_LAUNCHES == before + 2
+    ref = t_pool.gather_pool_bwd_segment_plain(table, nbrs, w, 450, g, lay)
+    assert torch.equal(_bits(with_layout), _bits(ref))
+    assert torch.equal(_bits(without), _bits(ref))
 
 
 _BF16_ROWS_2CH = t_pool.max_resident_rows(256, 50, torch.bfloat16, chunks=2)

@@ -49,6 +49,7 @@ from movie_recommendation_engine_tpu_torch.graph import csr as t_csr
 from movie_recommendation_engine_tpu_torch.graph import dataset as t_dataset
 from movie_recommendation_engine_tpu_torch.models import losses as t_losses
 from movie_recommendation_engine_tpu_torch.models import pinsage as t_ps
+from movie_recommendation_engine_tpu_torch.ops import pool as t_pool
 from movie_recommendation_engine_tpu_torch.sampling import negative as t_neg
 from movie_recommendation_engine_tpu_torch.sampling import random_walk as t_rw
 from movie_recommendation_engine_tpu_torch.train import optim as t_optim
@@ -309,6 +310,46 @@ def test_pooled_forward_batch_values_and_grads_match_jax(forward_setup, form, dt
     for k, g in grads.items():
         a, b = g.numpy(), np.asarray(ref_g[k], np.float32)
         assert np.linalg.norm(a - b) <= 0.15 * np.linalg.norm(b) + 1e-12, k
+
+
+def test_pooled_forward_batch_takes_bwd_layouts(forward_setup, tmp_path):
+    """The backward kernel's layout of the full-graph layer, built ahead,
+    gives the gradients that no layout gives (on the CPU both take the plain
+    backward, so this holds the plumbing: the layout reaches the pooling and
+    is checked against its table; one built for another limit raises, and so
+    does one with ``gather_impl="xla"``). A trainer on the kernel rung builds
+    one per full-graph gather layer at each table refresh."""
+    x, params, tables, m, batch = forward_setup
+
+    def grads(layouts, impl="pallas"):
+        flat = {k: _t(v).requires_grad_() for k, v in _flatten(params).items()}
+        emb = t_ps.pooled_forward_batch(
+            tree.unflatten(flat), _t(x), [_t(nb) for nb, _ in tables],
+            [_t(w) for _, w in tables], _t(batch), valid_limit=m, dtype=torch.float32,
+            gather_impl=impl, bwd_layouts=layouts)
+        emb.sum().backward()
+        return {k: v.grad for k, v in flat.items()}
+
+    lay = t_pool.segment_layout(_t(tables[0][0]), m)
+    with_layouts, without = grads([lay]), grads(None)
+    assert sum(g is not None for g in without.values()) >= 8
+    for k, g in without.items():
+        assert (g is None and with_layouts[k] is None) or torch.equal(with_layouts[k], g), k
+    with pytest.raises(ValueError, match="bwd_layout"):
+        grads([lay], impl="xla")
+    with pytest.raises(ValueError, match="layout was built for"):
+        grads([t_pool.segment_layout(_t(tables[0][0]), m - 1)])
+
+    cfg = _small(tmp_path, **{"model.pool_impl": "gather", "model.gather_impl": "pallas"})
+    tr = TTrainer(cfg, t_dataset.load(cfg), device="cpu")
+    tr.refresh_neighborhoods()
+    assert len(tr.bwd_layouts) == cfg.model.num_layers - 1
+    ref = t_pool.segment_layout(tr.nbr_tables[0][0], min(tr.valid_limit, tr.table_rows))
+    for a, b in zip(tr.bwd_layouts[0], ref):
+        assert torch.equal(a, b) if torch.is_tensor(b) else a == b
+    xla = TTrainer(_small(tmp_path, **{"model.pool_impl": "gather"}), tr.data, device="cpu")
+    xla.set_neighborhood_tables(tr.nbr_tables)
+    assert xla.bwd_layouts is None
 
 
 # ---------------------------------------------------------------------------
