@@ -80,7 +80,9 @@ def hamming_bound(q: int, n: int, tables: int, words: int,
 def gather_pool_bound(n: int, d: int, b: int, k: int, table_bytes: int) -> dict:
     """Bound of ``out[b] = sum_k w[b, k] * table[nbrs[b, k]]``: the table,
     ids and weights read once, the f32 output written once; a multiply-add
-    per gathered element at the float32 rate."""
+    per gathered element at the float32 rate. ``n`` is the table rows the
+    call must read: N where its ids reach every row, else the distinct rows
+    they reach (a batch of rows of a larger table)."""
     nbytes = n * d * table_bytes + b * k * 4 * 2 + b * d * 4
     ms, by = bound_ms(nbytes, (2 * b * k * d, FP32_OPS_PER_S))
     return {"ms": ms, "by": by, "bytes": nbytes, "flops": 2 * b * k * d}

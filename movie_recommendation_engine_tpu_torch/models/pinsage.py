@@ -2,8 +2,9 @@
 
 Port of ``movie_recommendation_engine_tpu/models/pinsage.py``: the MLP path
 (a), and the importance-pooling path (b) in gather form (``pooled_forward``,
-optionally with dense pool matrices for a prefix of the layers) and
-dense-matrix form (``pooled_forward_dense``), each with the batch-restricted
+optionally with pooling operators for a prefix of the layers: dense
+matrices, hub or block operators, ``_pool_apply``) and dense-matrix form
+(``pooled_forward_dense``), each with the batch-restricted
 training form (``pooled_forward_batch[_dense]``) and inverted dropout after
 the hidden convs (``_dropout``). Parameters keep the
 JAX layout — a dict ``{"input_proj", "convs": [...], "output_proj"}`` of
@@ -22,6 +23,8 @@ from typing import Any
 
 import torch
 
+from ..ops.block_sparse import BlockPool, block_pool_matmul
+from ..ops.hub_pool import HubPool, hub_pool_matmul, hub_pool_matmul_batch, take_rows
 from ..ops.pool import SegmentLayout, gather_pool
 
 Params = dict[str, Any]
@@ -173,6 +176,20 @@ def _dense_pool(pm: torch.Tensor, h: torch.Tensor, dtype) -> torch.Tensor:
     return (pm.to(dtype) @ h.to(dtype)).to(dtype)
 
 
+def _pool_apply(pm, h: torch.Tensor, dtype, gather_impl: str = "xla",
+                bwd_layout: SegmentLayout | None = None) -> torch.Tensor:
+    """Full-graph pooling through one layer's operator: a dense [N, N]
+    matrix, an ``ops.hub_pool.HubPool`` (its residual through
+    ``gather_impl``; ``bwd_layout`` is its residual table's layout for the
+    kernel's backward) or an ``ops.block_sparse.BlockPool``."""
+    if isinstance(pm, HubPool):
+        return hub_pool_matmul(pm, h, dtype=dtype, gather_impl=gather_impl,
+                               bwd_layout=bwd_layout)
+    if isinstance(pm, BlockPool):
+        return block_pool_matmul(pm, h, dtype=dtype)
+    return _dense_pool(pm, h, dtype)
+
+
 def _conv_block(conv: Params, h_self_in: torch.Tensor, h_neigh: torch.Tensor,
                 dtype) -> torch.Tensor:
     """concat(lin_self(h), pooled) -> lin_update [-> BN] -> ReLU -> L2 norm."""
@@ -243,13 +260,14 @@ def pooled_forward(params: Params, x_table: torch.Tensor,
                    aggregator: str = "importance", pool_mats=(),
                    gather_impl: str = "xla") -> torch.Tensor:
     """Full-graph forward: embeddings for every row of ``x_table``. Layer
-    ``i < len(pool_mats)`` pools through the dense matrix (hybrid mode); the
-    others through ``importance_pool`` with ``gather_impl``."""
+    ``i < len(pool_mats)`` pools through its operator (``_pool_apply``:
+    dense matrix, hub or block); the others through ``importance_pool``
+    with ``gather_impl``."""
     convs = params["convs"]
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
     for i, conv in enumerate(convs):
         if i < len(pool_mats):
-            h_neigh = _dense_pool(pool_mats[i], h, dtype)
+            h_neigh = _pool_apply(pool_mats[i], h, dtype, gather_impl)
         else:
             h_neigh = _gather_layer(
                 h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
@@ -276,28 +294,38 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
     """Training-step forward: layers 0..L-2 over the full graph (their output
     is the table the next layer gathers from), then the final conv and the
     output projection for ``batch_nodes`` [B] only. Batch ids are clamped into
-    the table, as JAX's ``take(..., mode="clip")``. ``pool_mats`` gives dense
-    pooling for a prefix of the layers (hybrid mode), the final one included
-    when it covers every layer. ``bwd_layouts[i]`` (``gather_impl="pallas"``)
-    is the backward kernel's layout of full-graph gather layer ``i``, or None;
-    the batch layer's rows change every step, so its backward builds its own."""
+    the table, as JAX's ``take(..., mode="clip")``. ``pool_mats`` gives the
+    pooling operators of a prefix of the layers (``_pool_apply``), the final
+    one included when it covers every layer: a hub operator there pools the
+    batch rows alone (``hub_pool_matmul_batch``), a block operator pools the
+    whole graph and takes the batch rows, a dense matrix its batch rows.
+    ``bwd_layouts[i]`` (``gather_impl="pallas"``) is the backward kernel's
+    layout of full-graph layer ``i``'s gather table (a hub layer's residual
+    table), or None; the batch layer's rows change every step, so its
+    backward builds its own."""
     convs = params["convs"]
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
     for i, conv in enumerate(convs[:-1]):
+        layout = bwd_layouts[i] if bwd_layouts else None
         if i < len(pool_mats):
-            h_neigh = _dense_pool(pool_mats[i], h, dtype)
+            h_neigh = _pool_apply(pool_mats[i], h, dtype, gather_impl, layout)
         else:
             h_neigh = _gather_layer(
                 h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
                 layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
-                aggregator, gather_impl, bwd_layouts[i] if bwd_layouts else None)
+                aggregator, gather_impl, layout)
         h = _conv_block(conv, h, h_neigh, dtype)
         h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
     last, li = convs[-1], len(convs) - 1
     idx = batch_nodes.long().clamp(0, h.shape[0] - 1)
-    if li < len(pool_mats):
-        pm = pool_mats[li]
-        h_neigh = _dense_pool(pm[batch_nodes.long().clamp(0, pm.shape[0] - 1)], h, dtype)
+    pm = pool_mats[li] if li < len(pool_mats) else None
+    if isinstance(pm, HubPool):
+        h_neigh = hub_pool_matmul_batch(pm, h, batch_nodes, dtype=dtype, gather_impl=gather_impl)
+    elif isinstance(pm, BlockPool):
+        h_neigh = block_pool_matmul(pm, h, dtype=dtype)[idx]
+    elif pm is not None:
+        h_neigh = _dense_pool(take_rows(pm, batch_nodes.long().clamp(0, pm.shape[0] - 1)),
+                              h, dtype)
     else:
         nbrs = layer_neighbors[min(li, len(layer_neighbors) - 1)]
         w = layer_weights[min(li, len(layer_weights) - 1)]

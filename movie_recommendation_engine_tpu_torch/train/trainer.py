@@ -1,8 +1,8 @@
 """Training runtime: graph, features, neighborhood tables, pool operators,
 the train step, the epoch loop, evaluation and checkpoint / resume.
 
-Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for the dense,
-hybrid and gather rungs (the hub and block rungs and the device mesh are not
+Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for every
+pooling rung (dense, hybrid, hub, block, gather; the device mesh is not
 ported yet, ROADMAP queue 1). Contrastive training over shared random and
 rank-window hard negatives on importance-pooled embeddings: per step, the
 negatives, the batch-restricted pooled forward with dropout, the loss
@@ -37,6 +37,9 @@ from ..graph import features as feat_mod
 from ..graph.dataset import MovieLensData
 from ..graph.split import corated_item_pairs
 from ..models import losses, pinsage
+from ..ops import block_sparse as bsp
+from ..ops import hub_pool as hub_mod
+from ..ops.hub_pool import HubPool
 from ..ops.pool import segment_layout
 from ..sampling import negative, random_walk as rw
 from . import optim
@@ -149,6 +152,7 @@ class Trainer:
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         self.pool_mats: tuple = ()
         self.bwd_layouts: list | None = None
+        self._block_perm: np.ndarray | None = None   # block rung's node order
         # Steps per block of an epoch (see train_epoch).
         self.steps_per_call = 8
 
@@ -191,51 +195,162 @@ class Trainer:
 
     def set_neighborhood_tables(self, tables) -> None:
         """Use the given per-layer ([N, K] ids, [N, K] weights) tables (tensors
-        or arrays) and build the pool operators the config's rung asks for:
-        ``dense`` (one [N, N] matrix per layer), ``hybrid`` (a matrix for
-        layers 0..L-2, gather for the last) or ``gather`` (none). With
-        ``gather_impl="pallas"`` it also builds the backward kernel's layout
-        (``ops.pool.segment_layout``) of each full-graph gather layer."""
-        cfg = self.cfg
+        or arrays) and build the pool operators of the config's rung
+        (``_pool_operators``). With ``gather_impl="pallas"`` it also builds
+        the backward kernel's layouts (``full_graph_layouts``)."""
         def on_device(x, dtype):
             return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
                                    dtype=dtype, device=self.device)
 
         self.nbr_tables = [(on_device(nb, torch.int32), on_device(w, torch.float32))
                            for nb, w in tables]
+        # Drop the old operators before building the new ones: at scale two
+        # sets do not fit on the card together.
         self.pool_mats = ()
         self.bwd_layouts = None
-        impl = cfg.model.pool_impl
-        n_layers = cfg.model.num_layers
-        if cfg.model.aggregator_type != "importance" or cfg.train.train_path == "mlp":
+        if (self.cfg.model.aggregator_type != "importance"
+                or self.cfg.train.train_path == "mlp"):
             return
-        if impl == "dense" or (impl == "auto"
-                               and self.table_rows <= cfg.model.dense_pool_max_rows):
+        self.pool_mats = self._pool_operators()
+        if self.gather_impl == "pallas":
+            self.bwd_layouts = self.full_graph_layouts()
+
+    def full_graph_layouts(self) -> list:
+        """``ops.pool.segment_layout`` of each full-graph layer's gather
+        table, for the backward kernel: a gather layer's walk table (limit
+        ``valid_limit``), a hub layer's residual ids (limit N, as the
+        residual pools over the whole table); None for a dense or block
+        layer. Layers 0..L-2 pool the whole graph with the same tables
+        until the next refresh (the last layer pools the batch's rows)."""
+        limit = min(self.valid_limit, self.table_rows)
+        layouts = []
+        for i in range(self.cfg.model.num_layers - 1):
+            pm = self.pool_mats[i] if i < len(self.pool_mats) else None
+            if isinstance(pm, HubPool):
+                layouts.append(segment_layout(pm.res_nbrs, self.table_rows))
+            elif pm is None:
+                layouts.append(segment_layout(
+                    self.nbr_tables[min(i, len(self.nbr_tables) - 1)][0], limit))
+            else:
+                layouts.append(None)
+        return layouts
+
+    def _pool_operators(self) -> tuple:
+        """The pooling rung, as the JAX trainer picks it: ``dense`` (one
+        [N, N] matrix per layer), ``hybrid`` (matrices for layers 0..L-2,
+        gather for the last), ``hub`` (a ``HubPool`` for layers 0..L-2, and
+        for the last too under ``hub_pool_final_layer``, or under ``auto``
+        when the slabs fit ``auto_hub_final_max_bytes``), ``block``, or
+        ``gather`` (no operators). ``auto`` takes dense, then hybrid, up to
+        their row limits; above them hub, then block when a hub layer drops
+        more mass than its gate (after one doubling of the residual), then
+        gather when a block layer does."""
+        m = self.cfg.model
+        impl, n_layers, rows = m.pool_impl, m.num_layers, self.table_rows
+        n_dense = n_hub = n_block = 0
+        if impl == "dense" or (impl == "auto" and rows <= m.dense_pool_max_rows):
             n_dense = n_layers
         elif n_layers > 1 and (impl == "hybrid" or (
-                impl == "auto"
-                and self.table_rows <= cfg.model.dense_pool_hybrid_max_rows)):
+                impl == "auto" and rows <= m.dense_pool_hybrid_max_rows)):
             n_dense = n_layers - 1
-        elif n_layers > 1 and impl in ("hub", "block", "auto"):
-            raise _not_ported(
-                f"pool_impl={impl!r} at {self.table_rows} rows (hub/block rungs)")
-        else:
-            n_dense = 0
-        if cfg.model.pool_matrix_dtype not in ("auto", "bfloat16"):
-            raise _not_ported(f"pool_matrix_dtype={cfg.model.pool_matrix_dtype!r}")
-        self.pool_mats = tuple(
-            pinsage.build_pool_matrix(nbrs, w, num_cols=self.table_rows,
-                                      valid_limit=self.valid_limit,
-                                      dtype=torch.bfloat16)
-            for nbrs, w in self.nbr_tables[:n_dense])
-        if self.gather_impl == "pallas":
-            # Layers 0..L-2 pool over the whole graph with the same table
-            # until the next refresh (the last layer pools the batch's rows).
-            limit = min(self.valid_limit, self.table_rows)
-            self.bwd_layouts = [
-                None if i < n_dense else segment_layout(
-                    self.nbr_tables[min(i, len(self.nbr_tables) - 1)][0], limit)
-                for i in range(n_layers - 1)]
+        elif n_layers > 1 and impl == "block":
+            n_block = n_layers - 1
+        elif n_layers > 1 and impl in ("hub", "auto"):
+            hub_final = m.hub_pool_final_layer
+            if impl == "auto" and m.auto_hub_final and not hub_final:
+                dt = hub_mod.resolve_pool_matrix_dtype(m.pool_matrix_dtype, rows, "hub",
+                                                       head_cfg=m.hub_pool_head)
+                head = m.hub_pool_head if m.hub_pool_head > 0 else hub_mod.auto_head(rows, dt)
+                slab_bytes = n_layers * rows * min(head, rows) * dt.itemsize
+                hub_final = slab_bytes <= m.auto_hub_final_max_bytes
+            n_hub = n_layers if hub_final else n_layers - 1
+        if n_hub:
+            mats = self._hub_operators(n_hub)
+            if mats:
+                return mats
+            if impl == "auto":
+                n_block = n_hub
+        if n_block:
+            return self._block_operators(n_block)
+        if n_dense:
+            pool_dtype = hub_mod.resolve_pool_matrix_dtype(m.pool_matrix_dtype, rows, "dense")
+            # Cast after the bf16 build, as JAX does (a scatter-add into
+            # float8 would round every addition).
+            return tuple(
+                pinsage.build_pool_matrix(nbrs, w, num_cols=rows, valid_limit=self.valid_limit,
+                                          dtype=torch.bfloat16).to(pool_dtype)
+                for nbrs, w in self.nbr_tables[:n_dense])
+        return ()
+
+    def _hub_operators(self, n_hub: int) -> tuple:
+        """One ``HubPool`` for each of the first ``n_hub`` layers, the slab
+        built in ``pool_dtype`` directly, or () when a layer fails its gate
+        (``hub_pool_max_dropped_mass``, or the block gate when negative)
+        even after one doubling of its residual."""
+        m = self.cfg.model
+        pool_dtype = hub_mod.resolve_pool_matrix_dtype(
+            m.pool_matrix_dtype, self.table_rows, "hub", head_cfg=m.hub_pool_head)
+        cap = (m.hub_pool_max_dropped_mass if m.hub_pool_max_dropped_mass >= 0
+               else m.block_pool_max_dropped_mass)
+        mats = []
+        for nbrs, w in self.nbr_tables[:n_hub]:
+            def build(residual):
+                return hub_mod.build_hub_pool_device(
+                    nbrs, w, valid_limit=self.valid_limit, head=m.hub_pool_head,
+                    residual=residual, dtype=pool_dtype)
+
+            hp, stats = build(m.hub_pool_residual)
+            self.log.log("hub_pool", **stats)
+            r2 = min(m.hub_pool_residual * 2, int(nbrs.shape[1]))
+            if stats["dropped_mass"] > cap and r2 > m.hub_pool_residual:
+                # Free the failed slab before the wider build: at scale two
+                # slabs do not fit on the card together.
+                del hp
+                hp, stats = build(r2)
+                self.log.log("hub_pool_residual_escalated", residual=r2, **stats)
+            if stats["dropped_mass"] > cap:
+                del hp
+                self.log.log("hub_pool_fallback", dropped_mass=stats["dropped_mass"])
+                return ()
+            mats.append(hp)
+        return tuple(mats)
+
+    def _block_operators(self, n_block: int) -> tuple:
+        """One ``BlockPool`` for each of the first ``n_block`` layers over
+        the node order cached at the first build (``block_pool_order``), cast
+        to ``pool_dtype`` after the bf16 build, or () when a layer drops more
+        than ``block_pool_max_dropped_mass``."""
+        m = self.cfg.model
+        tables = [(nb.cpu().numpy(), w.cpu().numpy()) for nb, w in self.nbr_tables[:n_block]]
+        if self._block_perm is None:
+            t0 = time.perf_counter()
+            if m.block_pool_order == "mass":
+                self._block_perm = bsp.mass_permutation(*tables[0], valid_limit=self.valid_limit)
+            else:
+                self._block_perm = bsp.cluster_permutation(
+                    self.x_table, num_clusters=m.block_pool_clusters, seed=self.cfg.train.seed)
+            self.log.log("block_cluster", order=m.block_pool_order,
+                         seconds=time.perf_counter() - t0)
+        pool_dtype = hub_mod.resolve_pool_matrix_dtype(m.pool_matrix_dtype, self.table_rows,
+                                                       "block")
+        mats = []
+        for nbrs, w in tables:
+            bp, stats = bsp.build_block_pool(
+                nbrs, w, self._block_perm, valid_limit=self.valid_limit,
+                block_size=m.block_pool_block_size, max_blocks=m.block_pool_max_blocks,
+                device=self.device)
+            self.log.log("block_pool", **stats)
+            if stats["dropped_mass"] > m.block_pool_max_dropped_mass:
+                self.log.log("block_pool_fallback", dropped_mass=stats["dropped_mass"])
+                return ()
+            mats.append(bp._replace(a_blocks=bp.a_blocks.to(pool_dtype)))
+        return tuple(mats)
+
+    def _dense_fast_path(self) -> bool:
+        """A dense matrix for every layer: the all-matmul forwards. A full
+        set of hub or block operators goes through the general forwards."""
+        return (len(self.pool_mats) == self.cfg.model.num_layers
+                and all(torch.is_tensor(pm) for pm in self.pool_mats))
 
     # ---- train step -------------------------------------------------------
 
@@ -268,7 +383,7 @@ class Trainer:
         if cfg.train.train_path == "mlp":
             emb = pinsage.mlp_forward(params, self.x_table[all_nodes.long()],
                                       self.compute_dtype)
-        elif len(self.pool_mats) == cfg.model.num_layers:
+        elif self._dense_fast_path():
             emb = pinsage.pooled_forward_batch_dense(
                 params, self.x_table, list(self.pool_mats), all_nodes,
                 dtype=self.compute_dtype, **drop)
@@ -415,7 +530,7 @@ class Trainer:
         m = self.data.num_movies
         if self.cfg.train.train_path == "mlp":
             return pinsage.mlp_forward(params, self.x_table[:m], self.compute_dtype)
-        if len(self.pool_mats) == self.cfg.model.num_layers:
+        if self._dense_fast_path():
             emb = pinsage.pooled_forward_dense(params, self.x_table,
                                                list(self.pool_mats),
                                                dtype=self.compute_dtype)

@@ -1,0 +1,234 @@
+"""PyTorch port, the hub and block operators on the card, and the hub
+residual's shape in the gather-pool kernels (K = 8).
+
+No JAX here (``test_torch_hub`` holds the operators to the JAX package), so
+the file runs on the card too:
+``python -m pytest tests/test_torch_hub_ops.py -m cuda --noconftest``. Tests
+marked ``cuda`` hold the card's results against the CPU's (plain versions)
+and skip on a machine without a card. Tolerances: the gather-pool forward
+1e-4 and the segment backward bitwise, as ``test_torch_ops``; operators in
+f32 1e-4 (cuBLAS and the CPU sum in other orders), in bf16 compute 2e-2;
+slabs built on the card within one step of their dtype of the CPU's (the
+row sums add in another order) and bitwise equal from build to build.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from movie_recommendation_engine_tpu_torch.ops import block_sparse as t_bsp
+from movie_recommendation_engine_tpu_torch.ops import hub_pool as t_hub
+from movie_recommendation_engine_tpu_torch.ops import pool as t_pool
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    return torch.device("cuda")
+
+
+def popularity_tables(n: int, k: int = 50, seed: int = 0):
+    """Walk-table-shaped ids and weights: 60% of the slots drawn from a
+    Pareto(1.2) popularity, weights ~ popularity^0.45 x lognormal(2.0),
+    rows normalized (ids may repeat within a row)."""
+    rng = np.random.default_rng(seed)
+    pop = rng.pareto(1.2, size=n) + 1.0
+    pop /= pop.sum()
+    mix = rng.random((n, k)) < 0.60
+    nb = np.where(mix, rng.choice(n, size=(n, k), p=pop), rng.integers(0, n, (n, k)))
+    w = (pop[nb] * n) ** 0.45 * rng.lognormal(0.0, 2.0, size=(n, k))
+    w /= w.sum(axis=1, keepdims=True)
+    return torch.from_numpy(nb.astype(np.int32)), torch.from_numpy(w.astype(np.float32))
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return x.view(ints[x.element_size()])
+
+
+def _hub(device, n=2048, dtype=torch.bfloat16, head=256, residual=8, seed=0, k=50):
+    nb, w = popularity_tables(n, k=k, seed=seed)
+    return t_hub.build_hub_pool_device(nb.to(device), w.to(device), valid_limit=n,
+                                       head=head, residual=residual, dtype=dtype)
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_hub_residual_padding_is_row_zero(device, request):
+    """Rows with fewer than R residual entries pad with id 0 and weight 0;
+    the residual's segment layout (limit N) counts them as row 0's slots,
+    so row 0 is one long split row: correct, as each adds 0 * g."""
+    dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
+    hp, _ = _hub(dev, head=1024, k=16)
+    pad = (hp.res_w == 0)
+    assert bool(pad.any()) and bool((hp.res_nbrs[pad] == 0).all())
+    lay = t_pool.segment_layout(hp.res_nbrs, hp.res_nbrs.shape[0])
+    c = int(lay.totals[0])
+    row0 = int((hp.res_nbrs == 0).sum())
+    assert int(lay.row_ptr[1] - lay.row_ptr[0]) == row0
+    assert int((lay.chunks[:c, 0] == 0).sum()) == -(-row0 // lay.chunk) > 1
+
+
+def test_build_hub_pool_device_is_repeatable():
+    a, sa = _hub("cpu", dtype=torch.float8_e4m3fn)
+    b, sb = _hub("cpu", dtype=torch.float8_e4m3fn)
+    assert sa == sb
+    for x, y in zip(a, b):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_take_rows_of_a_float8_slab(device, request):
+    dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
+    a = torch.rand((50, 7), device=dev).to(torch.float8_e4m3fn)
+    rows = torch.tensor([3, 0, 49, 3], device=dev)
+    got = t_hub.take_rows(a, rows)
+    assert got.dtype == torch.float8_e4m3fn
+    assert torch.equal(got.float(), a.float()[rows])
+
+
+# ---------------------------------------------------------------------------
+# On the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [None, 1524])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gather_pool_kernels_at_the_hub_residual_shape(cuda, b, dtype):
+    """The residual of a hub layer (K = 8, valid limit N, padding slots of
+    row 0): the forward kernel within 1e-4 of its plain version, the segment
+    backward bitwise equal to its plain version and from call to call; the
+    whole graph (B = N) and a batch layer's rows."""
+    hp, _ = _hub(cuda, head=1024, k=16)
+    n = hp.res_nbrs.shape[0]
+    rows = (torch.arange(n, device=cuda) if b is None
+            else torch.randint(0, n, (b,), generator=torch.Generator(cuda).manual_seed(2),
+                               device=cuda))
+    nbrs, w = hp.res_nbrs[rows].contiguous(), hp.res_w[rows].contiguous()
+    gen = torch.Generator(cuda).manual_seed(1)
+    table = torch.randn((n, 64), generator=gen, device=cuda).to(dtype)
+    g = torch.randn((nbrs.shape[0], 64), generator=gen, device=cuda)
+    before = (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES)
+    out = t_pool.gather_pool(table, nbrs, w, n)
+    lay = t_pool.segment_layout(nbrs, n)
+    d1 = t_pool.gather_pool_bwd(table, nbrs, w, n, g, need_weights=False, layout=lay)[0]
+    d2 = t_pool.gather_pool_bwd(table, nbrs, w, n, g, need_weights=False)[0]
+    torch.cuda.synchronize()
+    assert (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    torch.testing.assert_close(out, t_pool.gather_pool_plain(table, nbrs, w, n),
+                               atol=1e-4, rtol=0)
+    ref = t_pool.gather_pool_bwd_segment_plain(table, nbrs, w, n, g, lay)
+    assert torch.equal(_bits(d1), _bits(ref)) and torch.equal(_bits(d2), _bits(ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float8_e4m3fn])
+def test_hub_build_on_the_card_equals_cpu(cuda, dtype):
+    """The device builder on the card: the same head and residual as on the
+    CPU (distinct column masses here, so no near-tie can flip), weights
+    within 1e-6 of the CPU's (its row sums add in another order), so the
+    slab within one step of its dtype; bitwise repeatable on the card."""
+    got, st = _hub(cuda, dtype=dtype)
+    again, _ = _hub(cuda, dtype=dtype)
+    ref, rst = _hub("cpu", dtype=dtype)
+    for x, y in zip(got, again):
+        assert torch.equal(_bits(x), _bits(y))
+    assert torch.equal(got.head_ids.cpu(), ref.head_ids)
+    assert torch.equal(got.res_nbrs.cpu(), ref.res_nbrs)
+    torch.testing.assert_close(got.res_w.cpu(), ref.res_w, atol=1e-6, rtol=0)
+    step = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7, torch.float8_e4m3fn: 2.0 ** -3}
+    torch.testing.assert_close(got.a_head.cpu().float(), ref.a_head.float(), atol=1e-6,
+                               rtol=step[dtype])
+    for key in ("dropped_mass", "head_mass"):
+        assert st[key] == pytest.approx(rst[key], abs=1e-6)
+
+
+def _to(hp, device):
+    return type(hp)(*(x.to(device) for x in hp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slab", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("compute", [torch.float32, torch.bfloat16])
+def test_hub_pool_matmul_on_the_card_matches_cpu(cuda, slab, impl, compute, monkeypatch):
+    """Full and batch forms and the gradient in h (f32) on the card against
+    the CPU, from one operator; with ``pallas`` the residual launches the
+    forward kernel once a call and the segment backward once a gradient.
+    Small row chunks force the chunked slab conversion."""
+    monkeypatch.setattr(t_hub, "_CHUNK_BYTES", 1 << 16)
+    hp, _ = _hub("cpu", dtype=slab)
+    hc = _to(hp, cuda)
+    n = hp.a_head.shape[0]
+    h = torch.randn((n, 64), generator=torch.Generator().manual_seed(3))
+    batch = torch.randint(0, n + 3, (300,), generator=torch.Generator().manual_seed(4))
+    r = torch.randn((n, 64), generator=torch.Generator().manual_seed(5))
+
+    def run(op, x, bt):
+        x = x.to(compute).requires_grad_()
+        full = t_hub.hub_pool_matmul(op, x, compute, impl)
+        rows = t_hub.hub_pool_matmul_batch(op, x, bt, compute, impl)
+        ((full.float() * r.to(x.device)).sum() + rows.float().sum()).backward()
+        return full.detach().float(), rows.detach().float(), x.grad.float()
+
+    before = (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES)
+    got = run(hc, h.to(cuda), batch.to(cuda))
+    torch.cuda.synchronize()
+    if impl == "pallas":
+        assert (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    ref = run(hp, h, batch)
+    tol = 1e-4 if compute == torch.float32 else 2e-2
+    for a, b in zip(got, ref):
+        scale = max(1.0, float(b.abs().max()))
+        torch.testing.assert_close(a.cpu(), b, atol=tol * scale, rtol=0)
+
+
+@pytest.mark.cuda
+def test_hub_pool_gradient_is_bitwise_repeatable_on_the_card(cuda):
+    """bf16, kernels: two gradients in h bitwise equal (the head product is
+    one GEMM, the gathers back into sort-based index_put, the residual into
+    the segment kernel)."""
+    hp, _ = _hub(cuda)
+    h = torch.randn((hp.a_head.shape[0], 64), generator=torch.Generator(cuda).manual_seed(6),
+                    device=cuda).bfloat16()
+    batch = torch.randint(0, h.shape[0], (500,), generator=torch.Generator(cuda).manual_seed(7),
+                          device=cuda)
+    lay = t_pool.segment_layout(hp.res_nbrs, h.shape[0])
+
+    def grad():
+        x = h.clone().requires_grad_()
+        out = (t_hub.hub_pool_matmul(hp, x, torch.bfloat16, "pallas", bwd_layout=lay).float()
+               .square().sum()
+               + t_hub.hub_pool_matmul_batch(hp, x, batch, torch.bfloat16, "pallas").float().sum())
+        out.backward()
+        return x.grad
+
+    assert torch.equal(_bits(grad()), _bits(grad()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute,slab", [(torch.float32, torch.bfloat16),
+                                          (torch.bfloat16, torch.bfloat16),
+                                          (torch.bfloat16, torch.float8_e4m3fn)])
+def test_block_pool_on_the_card_matches_cpu(cuda, compute, slab):
+    """The block builder's scatter on the card bitwise equal to the CPU's
+    (the index math is the same numpy), the float8 cast after it, and the
+    pooled output and gradient in h against the CPU's."""
+    nb, w = popularity_tables(1000, k=20, seed=3)
+    perm = t_bsp.mass_permutation(nb, w)
+    bp, st = t_bsp.build_block_pool(nb, w, perm, block_size=128, max_blocks=4)
+    bc, sc = t_bsp.build_block_pool(nb.to(cuda), w.to(cuda), perm, block_size=128, max_blocks=4)
+    bp = bp._replace(a_blocks=bp.a_blocks.to(slab))
+    bc = bc._replace(a_blocks=bc.a_blocks.to(slab))
+    assert st == sc and torch.equal(_bits(bc.a_blocks.cpu()), _bits(bp.a_blocks))
+    h = torch.randn((1000, 64), generator=torch.Generator().manual_seed(8))
+
+    def run(op, x):
+        x = x.to(compute).requires_grad_()
+        out = t_bsp.block_pool_matmul(op, x, compute).float()
+        out.square().sum().backward()
+        return out, x.grad.float()
+
+    tol = 1e-4 if compute == torch.float32 else 2e-2
+    for a, b in zip(run(bc, h.to(cuda)), run(bp, h)):
+        torch.testing.assert_close(a.cpu(), b, atol=tol * max(1.0, float(b.abs().max())), rtol=0)
