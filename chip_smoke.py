@@ -73,10 +73,29 @@ Phases, one JSON line each:
    an ``xla`` step in f32, one step each of the gather and hybrid rungs on
    the same tables and draws, and both kernels timed at the hub residual's
    shapes (the full graph, B = N, and the batch layer, B = 1524).
-8. check   — the outputs are finite, unit-norm and of the expected shape, and
+8. ppr     — ``walk.strategy=ppr`` on the serve phase's corpus with
+   ``pool_impl=gather``, ``gather_impl=pallas``: ``Engine.fit`` for 2 epochs
+   (launch counts zeroed just before and read just after) builds the tables
+   once and launches both gather-pool kernels as the train phase does; a
+   second build is bitwise equal; ``ppr_scores`` on the card within 1e-5 of
+   the CPU's; one embedding pass; HR@10 beside the train phase's walk
+   tables. Then ``ppr_at_scale``: the same build twice on ``train_hub``'s
+   59,393-movie corpus (seconds, peak device memory, bitwise equal) and the
+   rung ``pool_impl=auto`` picks on those tables.
+9. retrieval — ``benchmark_search_methods`` (exact, LSH, LSH + rerank, IVF)
+   on ``train_hub``'s embeddings, 256 queries, k = 10, the Hamming
+   launches counted; each index's search timed as in 2, the ±1 LSH form
+   beside the popcount kernel; IVF's longest list within its cap, IVF with
+   every list probed equal to exact search (up to near-ties), both LSH forms
+   equal with and without rerank, a card-built IVF index copied to the CPU
+   answering alike, and a ``BatchingRecommender`` with ``method="ivf"``
+   answering threads and HTTP.
+10. check  — the outputs are finite, unit-norm and of the expected shape, and
    the CUDA engine agrees with the CPU engine (plain versions) on a small
-   input given the same params and tables, on the gather config and on a
-   ``pool_impl=hub`` config.
+   input given the same params and tables, on the gather config, on a
+   ``pool_impl=hub`` config and on a ``pool_impl=block``,
+   ``block_pool_order="feature"`` config (k-means on the card, the CPU given
+   its node order).
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
@@ -87,6 +106,7 @@ compare float32 arithmetic.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import statistics
@@ -96,6 +116,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -325,14 +346,9 @@ def kernel_phase(dev, sm_clock_mhz: float) -> tuple[float, dict]:
     h_plain = cuda_ms(lambda: hamming.hamming_distance_plain(qs, ss, t, wd), iters=5)
     # Library yardstick: the +-1 matmul form (ham = (B - q.s) / 2, max over
     # tables), signatures unpacked once outside the timing as an index would.
-    shifts = torch.arange(32, device=dev)
+    from movie_recommendation_engine_tpu_torch.retrieval.lsh import _unpack_pm
 
-    def pm(x):
-        bits = (x.long()[..., None] >> shifts) & 1                  # [R, T*W, 32]
-        return (bits.reshape(x.shape[0], t, wd * 32).permute(1, 0, 2)
-                .to(torch.bfloat16) * 2 - 1)                        # [T, R, B]
-
-    q_pm, s_pm = pm(qs), pm(ss)
+    q_pm, s_pm = (_unpack_pm(x.reshape(x.shape[0], t, wd)) for x in (qs, ss))
     lib_dist = (wd * 32 - torch.bmm(q_pm, s_pm.transpose(1, 2)).float().amax(0)) / 2
     check(torch.equal(lib_dist.int(), hamming.hamming_distance(qs, ss, t, wd)),
           "matmul-form Hamming yardstick disagrees")
@@ -926,9 +942,9 @@ def step_determinism(tr, q, p) -> dict:
     return out
 
 
-def train_phase(dev) -> tuple[dict, dict]:
-    """Returns the ``gather_pool_bwd`` entry of the kernels line and the
-    train path's launch counts."""
+def train_phase(dev) -> tuple[dict, dict, dict]:
+    """Returns the ``gather_pool_bwd`` entry of the kernels line, the train
+    path's launch counts and the gather config's fit summary."""
     from movie_recommendation_engine_tpu_torch.core import roofline
     from movie_recommendation_engine_tpu_torch.ops import pool
 
@@ -1097,7 +1113,7 @@ def train_phase(dev) -> tuple[dict, dict]:
             "ms_batch_b1524": bl["segment_with_layout_per_call"]["ms"],
             "atomic_ms_batch_b1524": bl["atomic"]["ms"],
             "plain_ms": a["plain_segment"]["ms"], "bound_ms": a["bound"]["ms"],
-            "bound_by": a["bound"]["by"], "library_ms": a["library"]["ms"]}, launches
+            "bound_by": a["bound"]["by"], "library_ms": a["library"]["ms"]}, launches, gather_fit
 
 
 # ---------------------------------------------------------------------------
@@ -1189,7 +1205,7 @@ def hub_kernel_times(dev, hp, n: int, d: int, rows, what: str) -> dict:
                          "row0_chunks": int((lay.chunks[:chunks, 0] == 0).sum())}}
 
 
-def train_hub_phase(dev) -> tuple[dict, dict]:
+def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
     """The at-scale rung at full width (features 128, hidden 256, embed 128,
     2 layers, K = 50, batch 512, 500 shared negatives, NCE, bf16): an
     ``api.Engine`` on the 59,393-movie synthetic corpus with the default
@@ -1203,9 +1219,8 @@ def train_hub_phase(dev) -> tuple[dict, dict]:
     kernel step against an ``xla`` step in f32, one step each of the gather
     and hybrid rungs on the same tables and draws (not gated), and both
     kernels at the hub residual's shapes. Returns the kernels line's extra
-    fields for ``gather_pool`` and ``gather_pool_bwd``."""
-    import gc
-
+    fields for ``gather_pool`` and ``gather_pool_bwd``, the engine (for the
+    at-scale PPR build) and its embeddings (for the retrieval phase)."""
     from movie_recommendation_engine_tpu_torch import api, default_config
     from movie_recommendation_engine_tpu_torch.models import pinsage
     from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
@@ -1374,19 +1389,345 @@ def train_hub_phase(dev) -> tuple[dict, dict]:
                  "ms_hub_k8_batch_with_layout": bat["backward"]["segment_with_layout_per_call"]["ms"],
                  "bound_ms_hub_k8_batch": bat["backward"]["bound"]["ms"],
                  "library_ms_hub_k8_batch": bat["backward"]["library"]["ms"]}
-    del eng, tr, hub_mats
-    gc.collect()
-    torch.cuda.empty_cache()
-    return fwd_extra, bwd_extra
+    return fwd_extra, bwd_extra, eng, emb
+
+
+# ---------------------------------------------------------------------------
+# 8. PPR neighborhoods (walk.strategy=ppr)
+# ---------------------------------------------------------------------------
+
+def ppr_tables(tr):
+    """The trainer's PPR build, called directly: (tables, seconds)."""
+    from movie_recommendation_engine_tpu_torch.sampling import ppr
+
+    cfg = tr.cfg
+    restrict = (tr.data.num_movies
+                if cfg.walk.count_nodes == "movies" and cfg.graph.use_bipartite_graph else None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tables = ppr.all_node_neighborhood_tables_ppr(
+        tr.graph, cfg.model.num_layers, cfg.walk.num_neighbors, num_nodes=tr.table_rows,
+        restrict_below=restrict, alpha=cfg.walk.ppr_alpha,
+        num_iterations=cfg.walk.ppr_iterations, batch=cfg.walk.ppr_batch)
+    torch.cuda.synchronize()
+    return tables, time.perf_counter() - t0
+
+
+def ppr_builds(tr) -> list:
+    return [e for e in tr.log.history if e["event"] == "ppr_tables"]
+
+
+def ppr_phase(dev, walk_fit: dict) -> dict:
+    """``walk.strategy=ppr`` at the default width on the serve phase's 4k
+    corpus with ``pool_impl=gather``, ``gather_impl=pallas``: ``Engine.fit``
+    for 2 epochs (launch counts zeroed just before and read just after)
+    builds the tables once and launches the gather-pool forward and
+    ``segment`` backward as the train phase does; a second build is
+    bitwise equal; ``ppr_scores`` of 64 sources on the card within 1e-5 of
+    the CPU's; one embedding pass timed; HR@10 beside the random-walk fit of
+    the train phase (reported). Returns the fit's launch counts."""
+    from movie_recommendation_engine_tpu_torch.sampling import ppr
+    from movie_recommendation_engine_tpu_torch.sampling import random_walk as rw
+
+    with tempfile.TemporaryDirectory() as d:
+        eng, fit = fit_config(dev, {"walk.strategy": "ppr", "model.pool_impl": "gather",
+                                    "model.gather_impl": "pallas",
+                                    "search.search_method": "lsh"}, d)
+    tr = eng.trainer
+    cfg = tr.cfg
+    launches, steps = fit["launches"], fit["adam_steps"]
+    builds = ppr_builds(tr)
+    check(len(builds) == 1, f"ppr: {len(builds)} table builds in a 2-epoch fit, expected 1")
+    # A build pushes each chunk of sources once an iteration through the
+    # gather-pool kernel.
+    build_launches = -(-tr.table_rows // cfg.walk.ppr_batch) * cfg.walk.ppr_iterations
+    check(launches["gather_pool_bwd"] == launches["gather_pool_bwd_segment"] == 2 * steps,
+          f"ppr fit: gather_pool_bwd launched {launches} in {steps} steps: expected 2 a "
+          "step, all on the segment route")
+    check(launches["gather_pool"] == build_launches + 2 * steps + 2 * 2,
+          f"ppr fit: gather_pool launched {launches['gather_pool']} times for one table "
+          f"build ({build_launches} pushes), {steps} steps and 2 validation passes")
+    nb, w = tr.nbr_tables[0]
+    check(all(t[0] is nb for t in tr.nbr_tables), "ppr: layers do not share one table")
+    zero_launches()
+    again, build_s = ppr_tables(tr)
+    check(read_launches()["gather_pool"] == build_launches,
+          f"ppr: a build launched gather_pool {read_launches()['gather_pool']} times, "
+          f"expected {build_launches}")
+    check(torch.equal(again[0][0], nb) and same_bits(again[0][1], w),
+          "ppr: a second build of the tables is not bitwise equal to the first")
+    sentinel = tr.graph.num_nodes
+    check(bool((w[nb == sentinel] == 0).all()), "ppr: a sentinel slot has weight")
+
+    # The card's scores against the CPU's, 64 sources spread over the movies.
+    n = tr.graph.num_nodes
+    src = torch.linspace(0, tr.data.num_movies - 1, 64).long()
+    card = ppr.ppr_scores(tr.graph, src.to(dev), n).cpu()
+    cpu = ppr.ppr_scores(rw.device_graph(tr.csr, "cpu"), src, n)
+    score_err = float((card - cpu).abs().max())
+    check(score_err <= 1e-5, f"ppr_scores: card vs CPU max abs err {score_err}")
+    mass = float(card.sum(1).max())
+    check(mass <= 1.0 + 1e-5, f"ppr_scores: a source holds mass {mass}")
+
+    pool_launches = read_launches()["gather_pool"]
+    emb = eng.embeddings(refresh=True)
+    check(read_launches()["gather_pool"] - pool_launches == 2,
+          "ppr: one embedding pass did not launch gather_pool twice")
+    check_embeddings(emb, (eng.data.num_movies, eng.cfg.model.embed_dim), "ppr")
+
+    def embed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.movie_embeddings()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+    embed_ms = statistics.median(embed() for _ in range(7))
+    valid = nb < tr.valid_limit
+    emit("ppr", corpus={"num_movies": eng.data.num_movies, "num_nodes": n,
+                        "num_edges": tr.csr.num_edges, "table_rows": tr.table_rows},
+         builds_in_fit=len(builds), build_s=build_s, build_launches=build_launches,
+         tables_bitwise_equal=True,
+         slots_valid_share=float(valid.float().mean()),
+         self_first_share=float((nb[:, 0].long() == torch.arange(tr.table_rows, device=dev))
+                                .float().mean()),
+         scores_card_vs_cpu={"sources": 64, "max_abs_err": score_err, "max_mass": mass},
+         fit=fit, embed={"ms": embed_ms, "profile": device_profile(tr.movie_embeddings, 10)},
+         val_hit_rate_at_10={"ppr": [h["val_hit_rate@10"] for h in fit["history"]],
+                             "random_walk": [h["val_hit_rate@10"] for h in walk_fit["history"]]})
+    return launches
+
+
+def push_timing(tr) -> dict:
+    """One PPR push on the graph (512 frontier columns after two pushes),
+    timed as in 2 at slices of 16, 32 and 64 edges: the gather-pool call
+    over the slices beside its bound, the ``segment_reduce`` of a target's
+    slices, and cuSPARSE's CSR x dense product of the same P^T (a library
+    call; whether three calls repeat its bits); the share of masked slots;
+    the ranking of a chunk's scores by stable sort and by ``topk``."""
+    from movie_recommendation_engine_tpu_torch.core import roofline
+    from movie_recommendation_engine_tpu_torch.ops import pool
+    from movie_recommendation_engine_tpu_torch.sampling import ppr
+
+    width0, out = ppr.SLICE, {}
+    n = tr.graph.num_nodes
+    edges = int(tr.graph.indices.shape[0])
+    src = torch.arange(min(512, n), device=tr.graph.indptr.device)
+    try:
+        for width in (16, 32, 64):
+            ppr.SLICE = width
+            push = ppr.push_operator(tr.graph)
+            r = ppr._ppr_columns(push, src, 0.15, 2).contiguous()
+            s, b = push.nbrs.shape[0], r.shape[1]
+            kern = cuda_ms(lambda: pool.gather_pool(r, push.nbrs, push.weights, n), iters=10)
+            part = pool.gather_pool(r, push.nbrs, push.weights, n)
+            seg = cuda_ms(lambda: torch.segment_reduce(part, "sum", lengths=push.slices),
+                          iters=10)
+            nbytes = n * b * 4 + s * width * 8 + s * b * 4
+            ms, by = roofline.bound_ms(nbytes, (2 * edges * b, roofline.FP32_OPS_PER_S))
+            out[f"slice{width}"] = {"slices": s, "masked_share": 1 - edges / (s * width),
+                                    "gather_pool": kern, "segment_reduce": seg,
+                                    "bound_ms": ms, "bound_by": by,
+                                    "bound_share": ms / kern["ms"]}
+        csr = ppr.push_operator(tr.graph)          # the library's operand: P^T in CSR
+        rows = torch.repeat_interleave(torch.arange(n, device=src.device), csr.slices)
+        keep = csr.nbrs < n
+        ids = rows[:, None].expand_as(csr.nbrs)[keep]
+        crow = torch.zeros(n + 1, dtype=torch.int64, device=src.device)
+        crow[1:] = torch.cumsum(torch.bincount(ids, minlength=n), 0)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            lib = torch.sparse_csr_tensor(crow, csr.nbrs[keep].long(), csr.weights[keep],
+                                          size=(n, n))
+        out["library_cusparse"] = cuda_ms(lambda: lib @ r, iters=10)
+        first = lib @ r
+        out["library_cusparse"]["bitwise_repeats"] = all(
+            same_bits(first, lib @ r) for _ in range(3))
+        # Ranking a chunk's [512, N] scores: the stable sort the build takes,
+        # beside topk (whose order among equal scores is not JAX's).
+        scores = r.t().contiguous()
+        out["rank"] = {"stable_sort": cuda_ms(lambda: ppr._top(scores, 50), iters=10),
+                       "topk": cuda_ms(lambda: torch.topk(scores, 50, dim=1), iters=10)}
+    finally:
+        ppr.SLICE = width0
+    return out
+
+
+def ppr_at_scale_phase(hub_eng) -> dict:
+    """The same build on ``train_hub``'s 59,393-movie corpus, twice: build
+    seconds, gather-pool launches and peak device memory above what was held
+    before; the only gate is that the two builds are bitwise equal. Then the
+    rung ``pool_impl=auto`` picks on the PPR tables, with its build events
+    (``dropped_mass``), and whether its embeddings are finite and unit-norm;
+    one push timed (``push_timing``)."""
+    tr = hub_eng.trainer
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    zero_launches()
+    first, s1 = ppr_tables(tr)
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    build_launches = read_launches()["gather_pool"]
+    second, s2 = ppr_tables(tr)
+    nb, w = first[0]
+    check(torch.equal(second[0][0], nb) and same_bits(second[0][1], w),
+          "ppr at scale: two builds of the tables are not bitwise equal")
+    del second
+    push = push_timing(tr)
+    start = len(tr.log.history)
+    t0 = time.perf_counter()
+    tr.set_neighborhood_tables(first)
+    torch.cuda.synchronize()
+    operators_s = time.perf_counter() - t0
+    events = [{k: v for k, v in e.items() if k != "time"} for e in tr.log.history[start:]
+              if e["event"].startswith(("hub_pool", "block_"))]
+    rung = [type(pm).__name__ for pm in tr.pool_mats]
+    emb = hub_eng.embeddings(refresh=True)
+    norms = np.linalg.norm(emb, axis=1)
+    out = {"embeddings_finite_unit_norm": bool(np.isfinite(emb).all()
+                                               and np.allclose(norms, 1.0, atol=1e-2)),"num_nodes": tr.graph.num_nodes, "num_edges": tr.csr.num_edges,
+           "table_rows": tr.table_rows, "build_s": [s1, s2], "bitwise_equal": True,
+           "build_launches": build_launches,
+           "peak_transient_gb": peak_gb, "slots_valid_share": float((nb < tr.valid_limit)
+                                                                   .float().mean()),
+           "auto_rung": rung, "operator_events": events, "operators_s": operators_s,
+           "push": push}
+    emit("ppr_at_scale", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 9. retrieval at scale: the search benchmark, IVF and both LSH forms
+# ---------------------------------------------------------------------------
+
+def same_ids(a_d, a_i, b_d, b_i, tol: float) -> int:
+    """Fails unless two [Q, k] results list the same ids, except at
+    positions whose two distances lie within ``tol`` (a near-tie that
+    rounding may order either way); returns the count of such positions."""
+    a_d, a_i, b_d, b_i = (np.asarray(x.cpu() if torch.is_tensor(x) else x)
+                          for x in (a_d, a_i, b_d, b_i))
+    diff = a_i != b_i
+    check(bool((np.abs(a_d - b_d)[diff] <= tol).all()),
+          f"ids differ beyond near-ties: {int(diff.sum())} positions")
+    return int(diff.sum())
+
+
+def retrieval_phase(dev, emb: np.ndarray, data) -> dict:
+    """``benchmark_search_methods`` on ``train_hub``'s 59,393 x 128
+    embeddings (256 queries, k = 10, the default search config), Hamming
+    launches counted; then each index built again and its search timed on
+    the device (``cuda_ms``, ``device_profile``), the ±1 LSH form beside the
+    popcount kernel; gates: IVF's longest list within ceil(4 N / 100), IVF
+    with every list probed returns exact search's ids, both LSH forms equal
+    with and without rerank, a card-built IVF index copied to the CPU gives
+    the same ids, and a ``BatchingRecommender`` with ``method="ivf"``
+    answers threads and HTTP. Returns the Hamming kernel's launch count in
+    the benchmark."""
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.ops import hamming
+    from movie_recommendation_engine_tpu_torch.retrieval import bench, ivf, lsh
+    from movie_recommendation_engine_tpu_torch.retrieval.server import BatchingRecommender
+
+    cfg = default_config()
+    n, k = emb.shape[0], 10
+    qi = np.random.default_rng(0).choice(n, 256, replace=False)
+    queries = emb[qi]
+    methods = ["exact", "lsh", "lsh_rerank", "ivf"]
+    hamming.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = bench.benchmark_search_methods(emb, queries, k=k, methods=methods, cfg=cfg,
+                                         device=dev)
+    bench_s = time.perf_counter() - t0
+    ham_launches = hamming.LAUNCHES
+    check(ham_launches > 0, "the Hamming kernel never launched in the search benchmark")
+    harness = {m: {key: v for key, v in r.items() if key not in ("distances", "indices")}
+               for m, r in res.items()}
+
+    q = torch.as_tensor(queries, device=dev)
+    x = torch.as_tensor(emb, device=dev)
+    indexes = {m: bench.make_index(m, emb.shape[1], cfg, device=dev) for m in methods}
+    indexes["lsh_pm"] = lsh.LSHIndex(emb.shape[1], cfg.search.lsh_bits, cfg.search.lsh_tables,
+                                     device=dev, hamming_impl="matmul")
+    indexes["lsh_rerank_pm"] = lsh.LSHIndex(emb.shape[1], cfg.search.lsh_bits,
+                                            cfg.search.lsh_tables, rerank=100, device=dev,
+                                            hamming_impl="matmul")
+    parts = cfg.search.ivf_partitions
+    indexes["ivf_full_probe"] = ivf.WeakANDIndex(emb.shape[1], num_partitions=parts,
+                                                 nprobe=parts, device=dev)
+    builds, out, timing = {}, {}, {}
+    for name, index in indexes.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.build(x)
+        torch.cuda.synchronize()
+        builds[name] = time.perf_counter() - t0
+        out[name] = index.search(q, k)
+        t = cuda_ms(lambda index=index: index.search(q, k), iters=10)
+        for _ in range(3):      # a window that recorded no kernel is taken again
+            prof = device_profile(lambda index=index: index.search(q, k), calls=5)
+            if prof["kernels_per_call"] > 0:
+                break
+        timing[name] = {**t, "per_query_ms": t["ms"] / q.shape[0],
+                        "kernels_per_call": prof["kernels_per_call"],
+                        "profile_wall_ms": prof["wall_ms"], "device_ms": prof["device_ms"],
+                        "busy_share": prof["busy_share"], "top": prof["top"]}
+    for plain, pm in (("lsh", "lsh_pm"), ("lsh_rerank", "lsh_rerank_pm")):
+        check(torch.equal(indexes[plain].planes, indexes[pm].planes), f"{pm}: other planes")
+        check(torch.equal(out[plain][1], out[pm][1]) and torch.equal(out[plain][0], out[pm][0]),
+              f"{pm}: the ±1 form's ids or distances differ from the popcount form's")
+    iv = indexes["ivf"]
+    cap = -(-4 * n // parts)
+    check(iv._max_list <= cap, f"IVF's longest list {iv._max_list} above the cap {cap}")
+    full_ties = same_ids(*out["ivf_full_probe"], *out["exact"], tol=1e-5)
+    cpu = ivf.WeakANDIndex(emb.shape[1], num_partitions=iv.num_partitions, nprobe=iv.nprobe,
+                           candidates_factor=iv.candidates_factor, device="cpu")
+    for name in ("_emb", "_norm2", "_perm", "_offsets", "_centroids"):
+        setattr(cpu, name, getattr(iv, name).cpu())
+    cpu._max_list = iv._max_list
+    cpu_ties = same_ids(*out["ivf"], *cpu.search(queries, k), tol=1e-5)
+    recall = {m: float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                                for a, b in zip(out[m][1].cpu().numpy(),
+                                                out["exact"][1].cpu().numpy())]))
+              for m in indexes}
+
+    srv = BatchingRecommender(emb, method="ivf", cfg=cfg, max_batch=cfg.serve.max_batch,
+                              max_wait_ms=cfg.serve.max_wait_ms, max_k=cfg.serve.max_k,
+                              device=dev)
+    try:
+        srv.reset_stats()
+        lat = drive_server(srv, n)
+        http = http_roundtrip(srv, data)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    check(stats["num_requests"] >= 32, f"IVF server: only {stats['num_requests']} requests")
+    emit("retrieval", corpus={"rows": n, "dim": emb.shape[1], "queries": q.shape[0], "k": k},
+         harness=harness, harness_s=bench_s, hamming_launches=ham_launches,
+         builds_s=builds, search=timing, recall_at_10=recall,
+         ivf={"max_list": iv._max_list, "cap": cap, "nprobe": iv.nprobe,
+              "lists": iv.num_partitions, "full_probe_near_tie_positions": full_ties,
+              "cpu_copy_near_tie_positions": cpu_ties},
+         lsh_forms_equal=True,
+         ivf_server={"requests": stats["num_requests"], "batches": stats["num_batches"],
+                     "mean_batch": stats["mean_batch_size"],
+                     "latency_ms_p50": stats["latency_ms_p50"],
+                     "latency_ms_p99": stats["latency_ms_p99"],
+                     "client_ms_p50": float(np.percentile(lat, 50)),
+                     "client_ms_p99": float(np.percentile(lat, 99)), "http": http})
+    return {"launches_retrieval": ham_launches,
+            "ms_59k_q256": timing["lsh"]["ms"], "matmul_form_ms_59k_q256": timing["lsh_pm"]["ms"]}
 
 
 def check_phase(dev) -> None:
     """The CUDA engine against the CPU engine (plain versions) on a small
     input with the same params and tables, float32 compute: the gather
-    config, and a ``pool_impl=hub`` config (head 32, residual 4, final layer
+    config; a ``pool_impl=hub`` config (head 32, residual 4, final layer
     hubbed) whose embedding pass takes the gather-pool kernel for both
-    layers' residuals; the CPU engine is given the card's hub operators."""
+    layers' residuals, the CPU engine given the card's hub operators; and a
+    ``pool_impl=block``, ``block_pool_order="feature"`` config (k-means on
+    the card), the CPU engine given the card's node order, whose last layer
+    takes the kernel."""
     from movie_recommendation_engine_tpu_torch import api, small_test_config
+    from movie_recommendation_engine_tpu_torch.ops import block_sparse as bsp
     from movie_recommendation_engine_tpu_torch.ops import pool
     from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
 
@@ -1401,13 +1742,20 @@ def check_phase(dev) -> None:
             "train.compute_dtype": "float32"}
     hub = {"model.pool_impl": "hub", "model.hub_pool_head": 32, "model.hub_pool_residual": 4,
            "model.hub_pool_final_layer": True, "model.hub_pool_max_dropped_mass": 1.0}
+    block = {"model.pool_impl": "block", "model.block_pool_order": "feature",
+             "model.block_pool_block_size": 32, "model.block_pool_max_dropped_mass": 1.0}
     out = {}
-    for name, over in (("gather", {"model.pool_impl": "gather"}), ("hub", hub)):
+    for name, over, expect in (("gather", {"model.pool_impl": "gather"}, 2), ("hub", hub, 2),
+                               ("block_feature", block, 1)):
         cfg = small_test_config().override({**base, **over})
         gpu = api.Engine(cfg, device=dev)
         cpu = api.Engine(cfg, device="cpu")
         gpu.trainer.refresh_neighborhoods()
         cpu.trainer.params = to_cpu(gpu.trainer.params)
+        if name == "block_feature":
+            check(isinstance(gpu.trainer.pool_mats[0], bsp.BlockPool),
+                  "check: pool_impl=block built no BlockPool")
+            cpu.trainer._block_perm = gpu.trainer._block_perm
         cpu.trainer.set_neighborhood_tables([(nb.cpu(), w.cpu())
                                              for nb, w in gpu.trainer.nbr_tables])
         if name == "hub":
@@ -1421,8 +1769,8 @@ def check_phase(dev) -> None:
         eg = gpu.embeddings()
         launches = pool.LAUNCHES
         ec = cpu.embeddings()
-        check(launches == 2, f"check {name}: gather_pool launched {launches} times in one "
-                             "embedding pass, expected 2")
+        check(launches == expect, f"check {name}: gather_pool launched {launches} times in "
+                                  f"one embedding pass, expected {expect}")
         check_embeddings(eg, ec.shape, f"check {name}")
         err = float(np.abs(eg - ec).max())
         check(err <= 1e-4, f"check {name}: CUDA vs CPU embeddings differ by {err}")
@@ -1434,6 +1782,13 @@ def check_phase(dev) -> None:
             out[name]["cpu_build_equal"] = all(
                 torch.equal(a.cpu().float(), b.float()) for pm_g, pm_c in
                 zip(cpu.trainer.pool_mats, cpu_built) for a, b in zip(pm_g, pm_c))
+        if name == "block_feature":
+            # Whether the CPU's k-means gives the card's order (reported:
+            # the two sum a cluster's rows in another order).
+            m = cfg.model
+            out[name]["cpu_order_equal"] = bool(np.array_equal(
+                bsp.cluster_permutation(cpu.trainer.x_table, num_clusters=m.block_pool_clusters,
+                                        seed=cfg.train.seed), gpu.trainer._block_perm))
     emit("check", tolerance=1e-4, **out)
 
 
@@ -1460,13 +1815,28 @@ def main() -> int:
     launches, serving = serve_phase(dev)
     pool_entry = gather_pool_phase(dev, *serving, gather_err)
     serve_default_phase(dev)
-    bwd, train_launches = train_phase(dev)
+    bwd, train_launches, walk_fit = train_phase(dev)
     pool_entry.update(launches=launches["gather_pool"],
                       launches_train=train_launches["gather_pool"])
-    fwd_hub, bwd_hub = train_hub_phase(dev)
+    fwd_hub, bwd_hub, hub_eng, hub_emb = train_hub_phase(dev)
     pool_entry.update(fwd_hub)
     bwd.update(bwd_hub)
+    ppr_launches = ppr_phase(dev, walk_fit)
+    pool_entry["launches_ppr"] = ppr_launches["gather_pool"]   # the build's pushes too
+    bwd.update(launches_ppr=ppr_launches["gather_pool_bwd"],
+               launches_ppr_segment=ppr_launches["gather_pool_bwd_segment"])
+    at_scale = ppr_at_scale_phase(hub_eng)
+    from movie_recommendation_engine_tpu_torch.sampling.ppr import SLICE
+    push = at_scale["push"][f"slice{SLICE}"]
+    pool_entry.update(launches_ppr_59k_build=at_scale["build_launches"],
+                      ms_ppr_push_59k=push["gather_pool"]["ms"],
+                      bound_ms_ppr_push_59k=push["bound_ms"],
+                      library_ms_ppr_push_59k=at_scale["push"]["library_cusparse"]["ms"])
     ham["launches"] = launches["hamming_distance"]
+    ham.update(retrieval_phase(dev, hub_emb, hub_eng.data))
+    del hub_eng
+    gc.collect()
+    torch.cuda.empty_cache()
     kernels = [pool_entry, bwd, ham]
     check_phase(dev)
     print(json.dumps({"kernels": kernels}))

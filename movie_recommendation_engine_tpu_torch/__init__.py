@@ -4,8 +4,9 @@ engine of ``movie_recommendation_engine_tpu`` ported to PyTorch and CUDA.
 The JAX package stays the reference; this package imports neither JAX nor
 it. Its two TPU kernels are hand-written CUDA kernels for Hopper
 (``ops/csrc``), built with ``nvcc`` at first use. Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``. Ported so far: the
-serving path (evaluate / recommend / serve); see ROADMAP.md for the rest.
+``cuda`` unless the caller passes ``device="cpu"``. Ported so far: serving,
+training, the at-scale pooling rungs, PPR neighborhoods, the IVF and LSH
+indexes and the search benchmark; see ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

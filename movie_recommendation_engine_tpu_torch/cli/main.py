@@ -3,10 +3,11 @@
     python -m movie_recommendation_engine_tpu_torch <mode> [--device cuda|cpu]
         [--set key=value ...]
 
-Ported modes: train | evaluate | recommend | serve (port of
+Ported modes: train | evaluate | recommend | benchmark | serve | all (port of
 ``movie_recommendation_engine_tpu/cli/main.py``; ``train --resume`` resumes
-from ``last_model``). The other modes of the JAX CLI (benchmark, tune, demo,
-download, all) exit with an error that points at ROADMAP.md. ``--device`` (default ``cuda``) replaces the JAX CLI's
+from ``last_model``; ``all`` runs train, evaluate and recommend). The other
+modes of the JAX CLI (tune, demo, download) exit with an error that points at
+ROADMAP.md. ``--device`` (default ``cuda``) replaces the JAX CLI's
 ``--platform``; a run asked to use CUDA on a machine without it fails.
 
 Config overrides use dotted keys into the typed Config, e.g.
@@ -27,8 +28,8 @@ from ..config import Config, default_config
 from ..core import checkpoint as ckpt
 from ..core.logging import MetricsLogger
 
-PORTED_MODES = ("train", "evaluate", "recommend", "serve")
-OTHER_MODES = ("benchmark", "tune", "demo", "download", "all")
+PORTED_MODES = ("train", "evaluate", "recommend", "benchmark", "serve", "all")
+OTHER_MODES = ("tune", "demo", "download")
 
 
 def _parse_overrides(pairs: list[str]) -> dict:
@@ -174,6 +175,29 @@ def cmd_recommend(cfg: Config, args) -> int:
     return 0
 
 
+def cmd_benchmark(cfg: Config, args) -> int:
+    """exact / LSH / LSH + rerank / IVF latency and recall@k over
+    ``--num-queries`` movies drawn from the corpus."""
+    from ..retrieval.bench import benchmark_search_methods, print_benchmark
+
+    logger = MetricsLogger(pretty=False)
+    tr, emb = _load_or_compute_embeddings(cfg, args, logger)
+    rng = np.random.default_rng(cfg.train.seed)
+    nq = min(args.num_queries, emb.shape[0])
+    q = emb[rng.choice(emb.shape[0], nq, replace=False)]
+    methods = ["exact", "lsh", "lsh_rerank", "ivf"]
+    if cfg.search.lsh_rerank > 0:
+        # The configured LSH already reranks: one row covers both.
+        methods.remove("lsh_rerank")
+    if cfg.search.search_method not in methods and not (
+            cfg.search.search_method == "lsh_rerank" and cfg.search.lsh_rerank > 0):
+        methods.append(cfg.search.search_method)
+    results = benchmark_search_methods(emb, q, k=args.k, cfg=cfg, methods=methods,
+                                       device=tr.device)
+    print_benchmark(results, k=args.k)
+    return 0
+
+
 def cmd_serve(cfg: Config, args) -> int:
     """Persistent batched recommendation server over the configured index."""
     from ..retrieval.server import BatchingRecommender, make_http_server
@@ -213,6 +237,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--checkpoint", help="checkpoint path (without .npz)")
     ap.add_argument("--movie-id", type=int, help="query movieId for recommend")
     ap.add_argument("--k", type=int, default=10)
+    ap.add_argument("--num-queries", type=int, default=256,
+                    help="benchmark mode: query count")
     ap.add_argument("--port", type=int, default=None,
                     help="serve mode: listen port (default serve.port)")
     ap.add_argument("--use-saved-embeddings", action="store_true")
@@ -223,12 +249,16 @@ def main(argv: list[str] | None = None) -> int:
                     help="device to run on (default cuda; fails without it)")
     args = ap.parse_args(argv)
     if args.mode in OTHER_MODES:
-        raise SystemExit(f"mode {args.mode!r} is not ported to the PyTorch "
-                         "package yet; see ROADMAP.md queue 1 (the JAX package "
-                         "runs it: python -m movie_recommendation_engine_tpu)")
+        raise SystemExit(f"mode {args.mode!r} is not ported to the PyTorch package "
+                         f"yet (not ported: {', '.join(OTHER_MODES)}); see ROADMAP.md "
+                         "queue 1 (the JAX package runs it: python -m "
+                         "movie_recommendation_engine_tpu)")
     cfg = _load_config(args)
+    if args.mode == "all":
+        return (cmd_train(cfg, args) or cmd_evaluate(cfg, args)
+                or cmd_recommend(cfg, args))
     return {"train": cmd_train, "evaluate": cmd_evaluate, "recommend": cmd_recommend,
-            "serve": cmd_serve}[args.mode](cfg, args)
+            "benchmark": cmd_benchmark, "serve": cmd_serve}[args.mode](cfg, args)
 
 
 if __name__ == "__main__":

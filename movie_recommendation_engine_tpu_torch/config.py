@@ -240,10 +240,9 @@ class WalkConfig:
     strategy: str = "random_walk"
     ppr_alpha: float = 0.15
     ppr_iterations: int = 10
-    # Sources per PPR chunk. Each chunk materializes an O(batch * E) f32
-    # edge-message transient — at ML-1M (~2M directed edges) batch=512 costs
-    # a ~4 GB transient; shrink this for bigger graphs (or use the default
-    # random_walk strategy, which is the at-scale path).
+    # Sources per PPR chunk. A chunk holds [N, batch] f32 frontiers and a
+    # [slices, batch] f32 partial (sampling/ppr.py), O(batch * N): about
+    # 1 GB at 119k nodes and batch 512.
     ppr_batch: int = 512
 
 

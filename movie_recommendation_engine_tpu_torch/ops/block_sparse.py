@@ -14,8 +14,8 @@ and each row renormalized over what it keeps; the builder reports the dropped
 mass so the trainer can fall back to gather.
 
 The order is ``mass_permutation`` (columns by descending pooling mass, the
-default ``model.block_pool_order="mass"``). ``cluster_permutation`` (the
-feature k-means order) needs the IVF k-means, which is not ported yet.
+default ``model.block_pool_order="mass"``) or ``cluster_permutation`` (the
+feature k-means order, ``"feature"``).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..retrieval.ivf import kmeans, pairwise_sq_dists
 from .hub_pool import _as_numpy, scatter_cells
 
 _EPS = 1e-12
@@ -39,12 +40,41 @@ class BlockPool(NamedTuple):
     inv: torch.Tensor        # [N] int64 old->new row position
 
 
-def cluster_permutation(*args, **kwargs) -> np.ndarray:
-    """The feature k-means order (``block_pool_order="feature"``): not
-    ported yet, it needs the IVF k-means (ROADMAP queue 1, IVF)."""
-    raise NotImplementedError(
-        "block_pool_order='feature' (cluster_permutation) is not ported to the PyTorch "
-        "package yet: it needs the IVF k-means (ROADMAP queue 1)")
+def cluster_permutation(features, num_clusters: int = 0, seed: int = 0,
+                        init_idx=None) -> np.ndarray:
+    """Node order that groups feature-similar rows (``block_pool_order=
+    "feature"``): k-means on the features' device (``retrieval.ivf.kmeans``,
+    initial rows ``init_idx`` if given), a greedy nearest-neighbour chain
+    over the non-empty centroids, then a stable sort of the rows by their
+    cluster's place in the chain."""
+    x = torch.as_tensor(features, dtype=torch.float32)
+    n = int(x.shape[0])
+    # Oversegment: fine clusters are pure, and the chain below puts the
+    # sub-clusters of one community next to each other.
+    p = num_clusters or max(min(n // 256, 4096), 64)
+    p = min(p, n)
+    centroids, assign = kmeans(x, p, seed=seed, init_idx=init_idx)
+    assign = assign.cpu().numpy()
+    c = centroids.cpu().numpy()
+
+    counts = np.bincount(assign, minlength=p)
+    live = np.flatnonzero(counts > 0)
+    cl = c[live]
+    m = live.shape[0]
+    d2 = pairwise_sq_dists(cl, cl)
+    np.fill_diagonal(d2, np.inf)
+    visited = np.zeros(m, bool)
+    order = np.empty(m, np.int64)
+    cur = 0
+    for i in range(m):
+        order[i] = cur
+        visited[cur] = True
+        d2[:, cur] = np.inf
+        if i + 1 < m:
+            cur = int(np.argmin(d2[cur]))
+    rank = np.full(p, p, np.int64)
+    rank[live[order]] = np.arange(m)
+    return np.argsort(rank[assign], kind="stable").astype(np.int32)
 
 
 def mass_permutation(nbrs, weights, valid_limit: int | None = None) -> np.ndarray:

@@ -41,7 +41,7 @@ from ..ops import block_sparse as bsp
 from ..ops import hub_pool as hub_mod
 from ..ops.hub_pool import HubPool
 from ..ops.pool import segment_layout
-from ..sampling import negative, random_walk as rw
+from ..sampling import negative, ppr, random_walk as rw
 from . import optim
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -179,18 +179,31 @@ class Trainer:
 
     def refresh_neighborhoods(self) -> None:
         """Resample one neighborhood table per layer for every table row,
-        then rebuild the pool operators."""
+        then rebuild the pool operators. PPR tables (``walk.strategy="ppr"``)
+        are deterministic: they are built once (logged as ``ppr_tables``)
+        and every later refresh keeps them and their operators."""
         cfg = self.cfg
-        if cfg.walk.strategy != "random_walk":
-            raise _not_ported(f"walk.strategy={cfg.walk.strategy!r}")
         restrict = (self.data.num_movies
                     if cfg.walk.count_nodes == "movies" and cfg.graph.use_bipartite_graph
                     else None)
-        tables = rw.all_node_neighborhood_tables(
-            self.graph, cfg.model.num_layers, cfg.walk.num_walks,
-            cfg.walk.walk_length, cfg.walk.num_neighbors, self.n_iters,
-            generator=self.generator, num_nodes=self.table_rows,
-            restrict_below=restrict)
+        if cfg.walk.strategy == "ppr":
+            if self.nbr_tables is not None:
+                return
+            tables = ppr.all_node_neighborhood_tables_ppr(
+                self.graph, cfg.model.num_layers, cfg.walk.num_neighbors,
+                num_nodes=self.table_rows, restrict_below=restrict,
+                alpha=cfg.walk.ppr_alpha, num_iterations=cfg.walk.ppr_iterations,
+                batch=cfg.walk.ppr_batch)
+            self.log.log("ppr_tables", rows=self.table_rows, batch=cfg.walk.ppr_batch)
+        elif cfg.walk.strategy == "random_walk":
+            tables = rw.all_node_neighborhood_tables(
+                self.graph, cfg.model.num_layers, cfg.walk.num_walks,
+                cfg.walk.walk_length, cfg.walk.num_neighbors, self.n_iters,
+                generator=self.generator, num_nodes=self.table_rows,
+                restrict_below=restrict)
+        else:
+            raise ValueError(f"unknown walk.strategy {cfg.walk.strategy!r} "
+                             "(expected 'random_walk' or 'ppr')")
         self.set_neighborhood_tables(tables)
 
     def set_neighborhood_tables(self, tables) -> None:

@@ -264,8 +264,10 @@ def test_block_builder_matches_jax(block_size, max_blocks, limit):
 
 
 def test_cluster_permutation_is_not_ported():
-    with pytest.raises(NotImplementedError, match="IVF"):
-        t_bsp.cluster_permutation(np.zeros((8, 4), np.float32))
+    """The feature order no longer raises (its parity with JAX is in
+    ``test_torch_ivf``): all-equal rows give a permutation, in row order."""
+    perm = t_bsp.cluster_permutation(np.zeros((8, 4), np.float32))
+    assert perm.dtype == np.int32 and perm.tolist() == list(range(8))
 
 
 # ---------------------------------------------------------------------------

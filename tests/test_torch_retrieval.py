@@ -1,6 +1,8 @@
 """PyTorch port, retrieval and evaluation against the JAX package:
-``ExactIndex``, ``LSHIndex`` (JAX's hyperplanes and signatures injected),
-``evaluate_embeddings`` / ``recommend``, and the batching server.
+``ExactIndex``, ``LSHIndex`` in both Hamming forms (JAX's hyperplanes and
+signatures injected), ``evaluate_embeddings`` / ``recommend``, the batching
+server, the ANN benchmark harness (JAX's hyperplanes and k-means initial
+rows injected) and the ``benchmark`` / ``all`` CLI modes.
 """
 
 import threading
@@ -92,6 +94,87 @@ def test_lsh_search_matches_jax_popcount(lsh_setup, rerank):
         np.testing.assert_array_equal(td, jd)
 
 
+@pytest.mark.parametrize("rerank,k", [(0, 12), (20, 12), (5, 12), (0, 120)])
+def test_lsh_matmul_form_matches_popcount_and_jax(lsh_setup, rerank, k):
+    """The ±1 form: ids and distances equal to the port's popcount form and
+    to JAX's matmul form on the same planes, with and without rerank, with
+    ``k`` above the shortlist (rerank 5) and at the corpus size."""
+    emb, q, planes, _ = lsh_setup
+    j_index = j_lsh.LSHIndex(16, 64, 4, seed=0, use_pallas=False, hamming_impl="matmul",
+                             rerank=rerank)
+    j_index.planes = jnp.asarray(planes)
+    j_index.build(jnp.asarray(emb))
+    jd, ji = map(np.asarray, j_index.search(jnp.asarray(q), k))
+    out = {}
+    for impl in ("matmul", "popcount"):
+        t_index = t_lsh.LSHIndex(16, 64, 4, rerank=rerank, planes=planes, device="cpu",
+                                 hamming_impl=impl)
+        t_index.build(emb)
+        assert (t_index._sigs_pm is not None) == (impl == "matmul")
+        out[impl] = [t.numpy() for t in t_index.search(q, k)]
+    (md, mi), (pd, pi) = out["matmul"], out["popcount"]
+    np.testing.assert_array_equal(mi, pi)
+    np.testing.assert_array_equal(md, pd)
+    np.testing.assert_array_equal(mi, ji)
+    if rerank:
+        np.testing.assert_allclose(md, jd, atol=1e-5)
+    else:
+        assert md.dtype == np.int32
+        np.testing.assert_array_equal(md, jd)
+
+
+def test_lsh_unpack_pm_matches_jax(lsh_setup):
+    """±1 bf16 [T, N, B] signatures bitwise as JAX's, from the same packed
+    words; chunked over rows."""
+    _, _, _, j_index = lsh_setup
+    ref = np.asarray(j_lsh._unpack_pm(j_index._sigs).astype(jnp.float32))
+    sigs = torch.from_numpy(np.array(j_index._sigs).view(np.int32))
+    got = t_lsh._unpack_pm(sigs, rows=7)
+    assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+def test_lsh_hamming_impl_from_environment(monkeypatch):
+    monkeypatch.setenv("MRE_LSH_IMPL", "matmul")
+    assert t_lsh.LSHIndex(8, 32, 2, device="cpu").hamming_impl == "matmul"
+    monkeypatch.delenv("MRE_LSH_IMPL")
+    assert t_lsh.LSHIndex(8, 32, 2, device="cpu").hamming_impl == "popcount"
+    with pytest.raises(ValueError, match="hamming_impl"):
+        t_lsh.LSHIndex(8, 32, 2, device="cpu", hamming_impl="bogus")
+
+
+def test_benchmark_search_methods_matches_jax():
+    """The same result keys and the same recall@10 per method, given JAX's
+    hyperplanes and k-means initial rows."""
+    import jax
+
+    from movie_recommendation_engine_tpu import small_test_config
+    from movie_recommendation_engine_tpu.retrieval import bench as j_bench
+    from movie_recommendation_engine_tpu_torch.retrieval import bench as t_bench
+
+    rng = np.random.default_rng(6)
+    emb = _unit_rows(rng, 400, 16)
+    q = emb[rng.choice(400, 24, replace=False)]
+    cfg = small_test_config()
+    methods = ["exact", "lsh", "lsh_rerank", "ivf"]
+    ref = j_bench.benchmark_search_methods(jnp.asarray(emb), jnp.asarray(q), k=10,
+                                           methods=methods, cfg=cfg, repeats=1)
+    planes = np.asarray(j_lsh.LSHIndex(16, 64, 4, seed=0, use_pallas=False).planes)
+    init = np.asarray(jax.random.choice(jax.random.PRNGKey(0), 400, shape=(8,),
+                                        replace=False))
+    got = t_bench.benchmark_search_methods(emb, q, k=10, methods=methods, cfg=cfg,
+                                           repeats=1, device="cpu", planes=planes,
+                                           init_idx=init)
+    assert list(got) == list(ref) == methods
+    for m in methods:
+        assert set(got[m]) == set(ref[m]), m
+        assert got[m]["method"] == ref[m]["method"] and got[m]["index_size"] == 400
+        assert got[m]["indices"].shape == (24, 10)
+        if m != "exact":
+            assert got[m]["recall"] == pytest.approx(ref[m]["recall"], abs=1e-12), m
+    assert got["lsh_rerank"]["recall"] > got["lsh"]["recall"]
+
+
 def test_evaluate_embeddings_matches_jax():
     """HR@k within 0.01 and MRR within 1%. A rank can move by one: both
     packages compare the matmul row against an elementwise gt similarity, so
@@ -123,7 +206,7 @@ def test_recommend_matches_jax():
     assert not (tidx.numpy() == qi[:, None]).any()
 
 
-@pytest.mark.parametrize("method", ["exact", "lsh", "lsh_rerank"])
+@pytest.mark.parametrize("method", ["exact", "lsh", "lsh_rerank", "ivf"])
 def test_batching_server_concurrent_requests(method):
     """More client threads than cores, a short switch interval, by-item and
     by-history requests at once: every answer excludes its query items and
@@ -173,3 +256,41 @@ def test_batching_server_concurrent_requests(method):
             assert not set(query) & set(idx)
     stats = server.stats()
     assert stats["num_requests"] == 96 and stats["num_batches"] < 96
+
+
+def _cli_sets(tmp_path):
+    return ["--set=data.source=synthetic", "--set=data.synthetic_num_movies=120",
+            "--set=data.synthetic_num_users=200", "--set=data.synthetic_num_ratings=3000",
+            "--set=features.feature_dim=16", "--set=model.hidden_dim=32",
+            "--set=model.embed_dim=16", "--set=walk.num_walks=10",
+            "--set=walk.num_neighbors=6", "--set=search.lsh_bits=64",
+            "--set=search.lsh_tables=2", "--set=search.ivf_partitions=6",
+            "--set=train.epochs=1", "--set=train.batch_size=32",
+            "--set=train.num_negative_samples=16", "--set=train.max_pairs_per_epoch=64",
+            f"--set=paths.output_dir={tmp_path}", f"--set=paths.checkpoint_dir={tmp_path}"]
+
+
+def test_cli_benchmark_and_all_on_cpu(tmp_path, capsys):
+    from movie_recommendation_engine_tpu_torch.cli.main import main
+
+    sets = _cli_sets(tmp_path)
+    assert main(["benchmark", "--device", "cpu", "--num-queries", "16", *sets]) == 0
+    out = capsys.readouterr().out
+    for name in ("Exact (Brute Force)", "Locality-Sensitive Hashing",
+                 "LSH + exact rerank (fused shortlist)", "Weak AND (IVF)"):
+        assert name in out
+    assert out.count("recall@10") == 3
+    assert main(["all", "--device", "cpu", "--k", "4", *sets]) == 0
+    out = capsys.readouterr().out
+    assert "Top-4 recommendations (exact)" in out
+    assert (tmp_path / "last_model.npz").exists()
+    assert (tmp_path / "movie_embeddings.npz").exists()
+
+
+@pytest.mark.parametrize("mode", ["tune", "demo", "download"])
+def test_cli_unported_modes_exit(mode):
+    from movie_recommendation_engine_tpu_torch.cli.main import main
+
+    with pytest.raises(SystemExit, match="not ported: tune, demo, download") as e:
+        main([mode, "--device", "cpu"])
+    assert e.value.code != 0

@@ -174,7 +174,7 @@ def test_cli_modes_on_cpu(tmp_path, capsys):
     assert main(["recommend", "--device", "cpu", "--k", "3", *sets]) == 0
     assert "Top-3 recommendations (lsh)" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="not ported"):
-        main(["benchmark", "--device", "cpu"])
+        main(["tune", "--device", "cpu"])
 
 
 def test_entry_points_default_to_cuda():
