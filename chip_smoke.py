@@ -96,6 +96,33 @@ Phases, one JSON line each:
    ``pool_impl=hub`` config and on a ``pool_impl=block``,
    ``block_pool_order="feature"`` config (k-means on the card, the CPU given
    its node order).
+11. movielens — the default config as a MovieLens user runs it: train_hub's
+   synthetic corpus (61,480 movies / 60,000 users / 3M ratings drawn, 59,393
+   movies after the 30% subset; MovieLens-25M's 25M ratings do not fit the
+   run) written as MovieLens CSVs (quoted titles with commas and quotes, NA
+   tags, empty ``tmdbId``), loaded through ``dataset.load`` at num_workers 1
+   and 4 (equal to ``_from_columns`` of the written columns; the native
+   parser's route), the stdlib reader timed; then ``api.Engine`` on ``cuda``
+   with ``gather_impl=pallas``, ``search_method=lsh``: ``fit`` 1 epoch of 4
+   steps (counts zeroed just before, read just after; ``pool_impl=auto``'s
+   rung must launch both gather-pool kernels, else the steps run again with
+   ``pool_impl=hub``), a step's device time, ``evaluate``, ``recommend``, an
+   LSH server (the Hamming kernel) and exact search at Q = 256 with the
+   tie-ordered top-k beside a stable sort and ``torch.topk``; both
+   gather-pool kernels held against their plain versions on the residuals
+   (or walk table) of the rung that ran.
+12. cooc   — ``use_bipartite_graph=False`` on the same CSVs: the native
+   co-occurrence counter's pairs and counts equal to the numpy counter's
+   (both timed), ``fit`` 2 steps on the gather rung with the kernels, which
+   are then held against their plain versions on its walk table.
+13. aggregators — each ``model.aggregator_type`` (and importance with batch
+   norm) on the serve corpus at full width in f32: a step on the card
+   against the same step on the CPU (tolerances in ``agg_step_vs_cpu``) and
+   its device time; ``edge_forward`` on the card bitwise repeatable, within
+   1e-4 of the CPU's, its message sum against ``index_add_``.
+14. tools  — ``tune`` (2 x 1 grid), ``demo`` on piped commands, ``train
+   --profile`` (the trace names the gather-pool kernel) and a reference
+   ``.pt`` checkpoint, on the card.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
@@ -107,6 +134,7 @@ compare float32 arithmetic.
 from __future__ import annotations
 
 import gc
+import io
 import json
 import os
 import statistics
@@ -1151,7 +1179,7 @@ def popularity_tables(seed: int, num_movies: int, k: int = 50,
 
 
 def hub_kernel_times(dev, hp, n: int, d: int, rows, what: str) -> dict:
-    """Both kernels at a hub residual's shape (K = 8, valid limit N): the
+    """Both kernels at a hub residual's shape (K its width, valid limit N): the
     forward against its plain version (1e-4), the segment backward bitwise
     against its plain version, both timed beside their bounds, their plain
     versions and ``embedding_bag`` (forward, and its backward in the
@@ -1503,8 +1531,9 @@ def push_timing(tr) -> dict:
     over the slices beside its bound, the ``segment_reduce`` of a target's
     slices, and cuSPARSE's CSR x dense product of the same P^T (a library
     call; whether three calls repeat its bits); the share of masked slots;
-    the ranking of a chunk's scores by stable sort and by ``topk``."""
+    the ranking of a chunk's scores by the tie-ordered top-k and by ``topk``."""
     from movie_recommendation_engine_tpu_torch.core import roofline
+    from movie_recommendation_engine_tpu_torch.core.ranking import top_k
     from movie_recommendation_engine_tpu_torch.ops import pool
     from movie_recommendation_engine_tpu_torch.sampling import ppr
 
@@ -1542,10 +1571,10 @@ def push_timing(tr) -> dict:
         first = lib @ r
         out["library_cusparse"]["bitwise_repeats"] = all(
             same_bits(first, lib @ r) for _ in range(3))
-        # Ranking a chunk's [512, N] scores: the stable sort the build takes,
-        # beside topk (whose order among equal scores is not JAX's).
+        # Ranking a chunk's [512, N] scores: the tie-ordered top-k the build
+        # takes, beside topk (whose order among equal scores is not JAX's).
         scores = r.t().contiguous()
-        out["rank"] = {"stable_sort": cuda_ms(lambda: ppr._top(scores, 50), iters=10),
+        out["rank"] = {"tie_ordered_key": cuda_ms(lambda: top_k(scores, 50), iters=10),
                        "topk": cuda_ms(lambda: torch.topk(scores, 50, dim=1), iters=10)}
     finally:
         ppr.SLICE = width0
@@ -1792,6 +1821,609 @@ def check_phase(dev) -> None:
     emit("check", tolerance=1e-4, **out)
 
 
+# ---------------------------------------------------------------------------
+# 11. MovieLens CSVs: the default config as a MovieLens user runs it
+# ---------------------------------------------------------------------------
+
+# MovieLens-25M as published (its README): the CSVs written here hold
+# train_hub's synthetic corpus instead, because generating 25M ratings does
+# not fit the run.
+ML_25M = {"movies": 62423, "users": 162541, "ratings": 25_000_095}
+NA_TAGS = ("NA", "null", "None", "n/a", "")
+
+
+def write_movielens(d: str, seed: int) -> dict:
+    """train_hub's synthetic corpus as MovieLens CSVs in ``d``, quoted as
+    MovieLens quotes them (a tenth of the titles carry a comma, another tenth
+    quotes), every 50th tag one of pandas' NA strings, ``imdbId`` with
+    leading zeros and every 7th ``tmdbId`` empty. Returns the columns the
+    reader must give (``dataset._from_columns``'s input)."""
+    import csv
+
+    from movie_recommendation_engine_tpu_torch.graph import synthetic
+
+    raw = synthetic.generate(num_movies=HUB_CORPUS["data.synthetic_num_movies"],
+                             num_users=HUB_CORPUS["data.synthetic_num_users"],
+                             num_ratings=HUB_CORPUS["data.synthetic_num_ratings"], seed=seed)
+    titles = list(raw["titles"])
+    for start, fmt in ((0, "{}, The ({}"), (5, '{} "Redux" ({}')):
+        for i in range(start, len(titles), 10):
+            titles[i] = fmt.format(*titles[i].rsplit(" (", 1))
+    raw["titles"] = titles
+    with open(os.path.join(d, "movies.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["movieId", "title", "genres"])
+        w.writerows(zip(raw["movie_ids"].tolist(), titles, raw["genres"]))
+    cols = [raw[k].tolist() for k in ("rating_user_ids", "rating_movie_ids", "rating_values",
+                                      "rating_timestamps")]
+    with open(os.path.join(d, "ratings.csv"), "w") as f:
+        f.write("userId,movieId,rating,timestamp\n")
+        f.writelines(f"{u},{m},{r:.1f},{t}\n" for u, m, r, t in zip(*cols))
+    tags = raw["tag_values"].tolist()
+    for j, i in enumerate(range(0, len(tags), 50)):
+        tags[i] = NA_TAGS[j % len(NA_TAGS)]
+    with open(os.path.join(d, "tags.csv"), "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["userId", "movieId", "tag", "timestamp"])
+        w.writerows(zip(raw["tag_user_ids"].tolist(), raw["tag_movie_ids"].tolist(), tags,
+                        range(len(tags))))
+    raw["tag_values"] = np.array(["nan" if t in NA_TAGS else t for t in tags], dtype=object)
+    n = raw["movie_ids"].shape[0]
+    imdb = np.arange(n, dtype=np.int64) * 7 + 1
+    tmdb = np.where(np.arange(n) % 7 == 0, -1, np.arange(n, dtype=np.int64) + 10)
+    with open(os.path.join(d, "links.csv"), "w") as f:
+        f.write("movieId,imdbId,tmdbId\n")
+        f.writelines(f"{m},{i:07d},{'' if t < 0 else t}\n"
+                     for m, i, t in zip(raw["movie_ids"].tolist(), imdb.tolist(), tmdb.tolist()))
+    raw.update(link_movie_ids=raw["movie_ids"], link_imdb=imdb, link_tmdb=tmdb)
+    return raw
+
+
+def check_same_data(got, ref, what: str) -> None:
+    for name in ("user_idx", "movie_idx", "ratings", "timestamps", "movie_ids", "user_ids",
+                 "imdb_ids", "tmdb_ids"):
+        check(np.array_equal(getattr(got, name), getattr(ref, name)), f"{what}: {name} differs")
+    for name in ("titles", "genres", "movie_tags"):
+        check(getattr(got, name) == getattr(ref, name), f"{what}: {name} differ")
+
+
+def rung_of(pool_mats) -> str:
+    from movie_recommendation_engine_tpu_torch.ops.block_sparse import BlockPool
+    from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
+
+    kinds = [type(pm) for pm in pool_mats]
+    if not kinds:
+        return "gather"
+    if kinds[0] is HubPool:
+        return "hubf" if len(kinds) == 2 else "hub"
+    if kinds[0] is BlockPool:
+        return "block"
+    return "dense" if len(kinds) == 2 else "hybrid"
+
+
+def movielens_fit(dev, cfg):
+    """``api.Engine`` on the CSVs and ``fit`` (launch counts zeroed just
+    before, read just after): (engine, its log, fit summary)."""
+    from movie_recommendation_engine_tpu_torch import api
+    from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+
+    log = MetricsLogger(stream=io.StringIO())
+    t0 = time.perf_counter()
+    eng = api.Engine(cfg, logger=log, device=dev)
+    init_s = time.perf_counter() - t0
+    zero_launches()
+    t0 = time.perf_counter()
+    out = eng.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_launches()
+    hist = out["history"]
+    check(bool(hist) and all(np.isfinite(h["loss"]) for h in hist), f"movielens fit loss {hist}")
+    tr = eng.trainer
+    builds = [{k: v for k, v in e.items() if k != "time"} for e in log.history
+              if e["event"].startswith(("hub_pool", "block_", "ingest", "cooc"))]
+    return eng, log, {"init_s": init_s, "fit_s": fit_s, "adam_steps": tr.opt_state.step,
+                      "rung": rung_of(tr.pool_mats), "builds": builds, "launches": launches,
+                      "loss": [h["loss"] for h in hist],
+                      "val_hit_rate@10": [h.get("val_hit_rate@10") for h in hist]}
+
+
+def walk_table_checks(dev, tr, what: str) -> dict:
+    """Both gather-pool kernels on a trainer's own layer-0 walk table, every
+    row (sentinel-only rows included), and on 1524 of its rows as a batch
+    layer reads them, in f32 and bf16: every forward route against
+    ``gather_pool_plain`` (1e-4), the segment backward bitwise against
+    ``gather_pool_bwd_segment_plain``."""
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, limit = tr.table_rows, tr.valid_limit
+    out = {"sentinel_only_rows": int((tr.nbr_tables[0][0] >= limit).all(dim=1).sum())}
+    for name, rows in {f"layer0_b{n}": torch.arange(n, device=dev),
+                       "batch_b1524": torch.randint(0, n, (1524,), generator=gen,
+                                                    device=dev)}.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            table, nbrs, w, g = bwd_inputs(gen, tr, rows, limit, dtype)
+            key = f"{name}_{str(dtype)[6:]}"
+            out[key] = {
+                "forward_max_abs_err": check_pool_routes(pool, table, nbrs, w, limit,
+                                                         f"{what} {key}"),
+                "segment_max_abs_err": check_segment(pool, table, nbrs, w, limit, g,
+                                                     f"{what} {key}")}
+    return out
+
+
+def path_kernel_checks(dev, tr, what: str) -> dict:
+    """Both gather-pool kernels held against their plain versions on the
+    inputs a fitted trainer's rung gives them: each hub layer's residual
+    (``hub_kernel_times``: layer 0 over every row, the batch layer over 1524),
+    else the walk table (``walk_table_checks``)."""
+    from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
+
+    hubs = [pm for pm in tr.pool_mats if isinstance(pm, HubPool)]
+    if not hubs:
+        check(not tr.pool_mats, f"{what}: the rung {rung_of(tr.pool_mats)} runs no gather layer")
+        return {"walk_table": walk_table_checks(dev, tr, what)}
+    n, hidden = tr.table_rows, tr.cfg.model.hidden_dim
+    gen = torch.Generator(device=dev).manual_seed(6)
+    out = {f"hub_layer0_b{n}_k{hubs[0].res_nbrs.shape[1]}": hub_kernel_times(
+        dev, hubs[0], n, hidden, torch.arange(n, device=dev), f"{what} hub layer 0")}
+    if len(hubs) > 1:
+        out[f"hub_batch_b1524_k{hubs[1].res_nbrs.shape[1]}"] = hub_kernel_times(
+            dev, hubs[1], n, hidden, torch.randint(0, n, (1524,), generator=gen, device=dev),
+            f"{what} hub batch layer")
+    return out
+
+
+def movielens_phase(dev, d: str) -> dict:
+    """Writes the CSVs, loads them through ``dataset.load`` at num_workers 1
+    and 4 (equal to ``_from_columns`` of the written columns, native route),
+    times the stdlib reader, then runs the default config on ``cuda`` with
+    ``gather_impl=pallas`` and ``search_method=lsh``: ``fit`` 1 epoch of 4
+    steps, whose ``pool_impl=auto`` rung must launch both gather-pool kernels
+    (else the same with ``pool_impl=hub``); a train step's device time;
+    ``evaluate``, ``recommend`` and an LSH server (the Hamming kernel); exact
+    search at Q = 256 with the tie-ordered top-k beside ``torch.topk``.
+    Returns the kernels line's extra fields."""
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+    from movie_recommendation_engine_tpu_torch.graph import dataset
+    from movie_recommendation_engine_tpu_torch.ops import hamming
+    from movie_recommendation_engine_tpu_torch.retrieval.exact import ExactIndex
+    from movie_recommendation_engine_tpu_torch.utils import ingest_native
+
+    base = default_config()
+    seed = base.data.synthetic_seed if base.data.synthetic_seed >= 0 else base.train.seed
+    t0 = time.perf_counter()
+    raw = write_movielens(d, seed)
+    write_s = time.perf_counter() - t0
+    cfg = base.override({"data.data_dir": d, "model.gather_impl": "pallas",
+                         "search.search_method": "lsh", "train.epochs": 1,
+                         "train.max_pairs_per_epoch": 2048,
+                         "paths.checkpoint_dir": os.path.join(d, "ck"),
+                         "paths.output_dir": os.path.join(d, "out")})
+    check(cfg.data.source == "movielens", "the default config's source is not movielens")
+    ref = dataset._from_columns(raw, cfg)
+    t0 = time.perf_counter()
+    ingest_native._lib()                  # g++ at first use, outside the timed loads
+    build_s = time.perf_counter() - t0
+    loads = {}
+    for workers in (1, 4):
+        log = MetricsLogger(stream=io.StringIO())
+        t0 = time.perf_counter()
+        data = dataset.load(cfg.override({"train.num_workers": workers}), log)
+        load_s = time.perf_counter() - t0
+        (ev,) = [e for e in log.history if e["event"] == "ingest"]
+        check(ev["route"] == "native", f"ratings.csv took the {ev['route']} route: {ev['reason']}")
+        check_same_data(data, ref, f"movielens load at num_workers {workers}")
+        loads[f"num_workers_{workers}"] = {"load_s": load_s, "parse_s": ev["seconds"],
+                                           "rows": ev["rows"],
+                                           "parse_rows_per_s": ev["rows"] / ev["seconds"]}
+    t0 = time.perf_counter()
+    plain = dataset.read_ratings_python(os.path.join(d, "ratings.csv"))
+    plain_s = time.perf_counter() - t0
+    check(plain[0].shape[0] == loads["num_workers_1"]["rows"], "stdlib reader: row count")
+    del plain
+
+    eng, log, fit = movielens_fit(dev, cfg)
+    hub_rerun = None
+    if fit["launches"]["gather_pool"] == 0:
+        # auto's rung ran no gather layer: the same steps on the hub rung,
+        # whose residual does.
+        del eng
+        eng, log, hub_rerun = movielens_fit(dev, cfg.override({"model.pool_impl": "hub"}))
+    kernel_fit = hub_rerun or fit
+    launches = kernel_fit["launches"]
+    check(launches["gather_pool"] > 0 and launches["gather_pool_bwd_segment"] > 0,
+          f"movielens fit launched {launches}: expected both gather-pool kernels")
+    tr = eng.trainer
+    n = eng.data.num_movies
+    kernel_checks = path_kernel_checks(dev, tr, "movielens")
+
+    pairs = tr._epoch_pairs(np.random.default_rng(0))
+    q = torch.as_tensor(pairs[0, :, 0], dtype=torch.int32, device=dev)
+    p = torch.as_tensor(pairs[0, :, 1], dtype=torch.int32, device=dev)
+
+    def step_ms():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.train_steps(q[None], p[None], tr.plateau.lr, 1.0, 0)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+    walls = [step_ms() for _ in range(6)]
+    prof = device_profile(lambda: tr.train_steps(q[None], p[None], tr.plateau.lr, 1.0, 0),
+                          calls=3)
+    step = {"step_wall_ms_median": statistics.median(walls[1:]), "step_wall_ms": walls,
+            "profile": prof,
+            "busy_share_of_median_wall": (prof["device_ms"] or 0.0) / statistics.median(walls[1:])}
+
+    metrics = eng.evaluate()
+    check(all(np.isfinite(v) for k, v in metrics.items() if k.startswith(("hit", "mrr"))),
+          f"movielens evaluate: {metrics}")
+    mid = int(eng.data.movie_ids[3])
+    recs = eng.recommend(movie_id=mid, k=10)
+    check(len(recs) == 10 and all(r["movieId"] != mid for r in recs), "movielens recommend")
+    emb = eng.embeddings(refresh=True)
+    check_embeddings(emb, (n, cfg.model.embed_dim), "movielens embeddings")
+    hamming.LAUNCHES = 0
+    srv = eng.serve()
+    try:
+        lat = drive_server(srv, n, threads=4, per_thread=4)
+        stats = srv.stats()
+    finally:
+        srv.close()
+    ham = hamming.LAUNCHES
+    check(ham > 0, "the Hamming kernel never launched behind the movielens LSH server")
+
+    # Exact search, 256 queries: the tie-ordered top-k (``torch.topk`` of a
+    # unique int64 key) beside a stable sort of all N cut to k (the same
+    # order) and plain torch.topk on the same distances.
+    x = torch.as_tensor(emb, device=dev)
+    qx = x[torch.as_tensor(np.random.default_rng(1).choice(n, 256, replace=False), device=dev)]
+    index = ExactIndex(x.shape[1], device=dev)
+    index.build(x)
+    sq = (x * x).sum(dim=1)
+
+    def dists():
+        return (qx * qx).sum(dim=1, keepdim=True) + sq[None, :] - 2.0 * (qx @ x.T)
+
+    def sort_search():
+        d_s, i_s = torch.sort(dists(), dim=1, stable=True)
+        return d_s[:, :10], i_s[:, :10]
+    exact = {"tie_ordered_key": cuda_ms(lambda: index.search(qx, 10), iters=10),
+             "stable_sort": cuda_ms(sort_search, iters=10),
+             "topk": cuda_ms(lambda: torch.topk(dists(), 10, dim=1, largest=False), iters=10)}
+    got, ref = index.search(qx, 10), sort_search()
+    check(torch.equal(got[1], ref[1]) and same_bits(got[0], ref[0]),
+          "exact search: the keyed top-k differs from the stable sort's order")
+    exact["tie_positions"] = same_ids(*got, *torch.topk(dists(), 10, dim=1, largest=False),
+                                      tol=0.0)
+    emit("movielens", corpus={"num_movies": n, "num_users": eng.data.num_users,
+                              "interactions": eng.data.num_interactions,
+                              "ratings_rows": loads["num_workers_1"]["rows"],
+                              "tags": int(raw["tag_values"].shape[0]), **HUB_CORPUS,
+                              "ml_25m_published": ML_25M},
+         write_s=write_s, parser_build_s=build_s, loads=loads, plain_reader_s=plain_s,
+         fit=fit, hub_rerun=hub_rerun, kernel_checks=kernel_checks, step=step,
+         evaluate=metrics,
+         server={"requests": stats["num_requests"], "latency_ms_p50": stats["latency_ms_p50"],
+                 "latency_ms_p99": stats["latency_ms_p99"],
+                 "client_ms_p50": float(np.median(lat)), "hamming_launches": ham},
+         exact_search_q256=exact)
+    return {"gather_pool": {"launches_movielens": launches["gather_pool"]},
+            "gather_pool_bwd": {"launches_movielens": launches["gather_pool_bwd"],
+                                "launches_movielens_segment":
+                                    launches["gather_pool_bwd_segment"]},
+            "hamming_distance": {"launches_movielens": ham}}
+
+
+# ---------------------------------------------------------------------------
+# 12. the co-occurrence graph on the same CSVs
+# ---------------------------------------------------------------------------
+
+def cooc_phase(dev, d: str) -> dict:
+    """``graph.use_bipartite_graph=False`` on the MovieLens CSVs: the native
+    counter's pairs and counts must equal the numpy counter's (both timed
+    alone), then ``fit`` 2 steps with ``pool_impl=gather``,
+    ``gather_impl=pallas``, whose graph build must take the native route
+    (finite loss, both gather-pool kernels launched), and both kernels held
+    against their plain versions on the fitted trainer's walk table."""
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.graph import builders, dataset
+    from movie_recommendation_engine_tpu_torch.utils import cooc_native
+
+    cfg = default_config().override({
+        "data.data_dir": d, "graph.use_bipartite_graph": False, "model.pool_impl": "gather",
+        "model.gather_impl": "pallas", "train.epochs": 1, "train.max_pairs_per_epoch": 1024,
+        "paths.checkpoint_dir": os.path.join(d, "ck_cooc")})
+    data = dataset.load(cfg)
+    cooc_native._lib()                    # g++ at first use, outside the timed count
+    # The two counters alone, on the grouped columns the builder counts.
+    order = np.argsort(data.user_idx, kind="stable")
+    u_s = data.user_idx[order].astype(np.int64)
+    m_s = data.movie_idx[order].astype(np.int64)
+    counts, seconds = {}, {}
+    for route, count in (("native", cooc_native.count_cooccurrence),
+                         ("numpy", builders.cooccurrence_counts)):
+        t0 = time.perf_counter()
+        counts[route] = count(u_s, m_s, data.num_movies, cfg.graph.similarity_threshold)
+        seconds[route] = time.perf_counter() - t0
+    keys = {route: np.asarray(i, np.int64) * data.num_movies + np.asarray(j, np.int64)
+            for route, (i, j, _) in counts.items()}
+    by = {route: np.argsort(k) for route, k in keys.items()}
+    check(np.array_equal(keys["native"][by["native"]], keys["numpy"][by["numpy"]])
+          and np.array_equal(counts["native"][2][by["native"]],
+                             counts["numpy"][2][by["numpy"]].astype(np.float32)),
+          "cooc: the native counter's pairs or counts differ from the numpy counter's")
+    pairs = int(keys["native"].shape[0])
+    del counts, keys, by
+    eng, log, fit = movielens_fit(dev, cfg)
+    (ev,) = [e for e in log.history if e["event"] == "cooc"]
+    check(ev["route"] == "native", f"cooc took the {ev['route']} route: {ev['reason']}")
+    graph = eng.trainer.csr
+    check(ev["pairs"] == pairs and graph.num_edges == 2 * pairs,
+          f"cooc: the engine's graph has {graph.num_edges} edges for {pairs} counted pairs")
+    seconds["build_in_engine"] = ev["seconds"]
+    launches = fit["launches"]
+    check(launches["gather_pool"] > 0 and launches["gather_pool_bwd_segment"] > 0,
+          f"cooc fit launched {launches}: expected both gather-pool kernels")
+    kernel_checks = path_kernel_checks(dev, eng.trainer, "cooc")
+    emit("cooc", num_movies=data.num_movies, interactions=data.num_interactions,
+         threshold=cfg.graph.similarity_threshold, edges=graph.num_edges, pairs=pairs,
+         count_s=seconds, isolated_movies=int((graph.degrees == 0).sum()), fit=fit,
+         kernel_checks=kernel_checks)
+    return {"gather_pool": {"launches_cooc": launches["gather_pool"]},
+            "gather_pool_bwd": {"launches_cooc": launches["gather_pool_bwd"],
+                                "launches_cooc_segment": launches["gather_pool_bwd_segment"]}}
+
+
+# ---------------------------------------------------------------------------
+# 13. the aggregator zoo and the edge forward
+# ---------------------------------------------------------------------------
+
+AGG_KINDS = (("mean", {}), ("weighted", {}), ("attention", {}), ("max", {}),
+             ("importance_transform", {}),
+             ("importance_bn", {"model.aggregator_type": "importance",
+                                "model.use_batch_norm": True}))
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, dev) for v in tree]
+    return tree.detach().to(dev, copy=True)
+
+
+def agg_step_vs_cpu(gpu, cpu, q, p) -> dict:
+    """One step on the card and on the CPU (the plain versions) from the
+    same params, tables and draws, f32: the loss within 1e-4 relative, each
+    gradient leaf within 1e-3 of the larger of its norm and 1e-3 of the
+    largest leaf norm, and the updated params within 2 lr. Adam's first
+    step moves each param by about lr times the sign of its gradient, so a
+    param whose gradient lies within rounding of zero may step either way:
+    every param that differs by more than 1e-5 must have a gradient below
+    1e-4 of its leaf's largest (or 1e-6 absolute) on the CPU."""
+    from movie_recommendation_engine_tpu_torch.core import tree
+    from movie_recommendation_engine_tpu_torch.train import optim
+    from movie_recommendation_engine_tpu_torch.train.trainer import StepDraws
+
+    d = gpu.draw_step(q, num_hard=1)
+    keep = [torch.rand((gpu.table_rows, gpu.cfg.model.hidden_dim), generator=gpu.generator,
+                       device=q.device) < 1 - gpu.cfg.model.dropout]
+    draws = {"gpu": [StepDraws(d.random, d.hard, keep)],
+             "cpu": [StepDraws(d.random.cpu(), d.hard.cpu(), [k.cpu() for k in keep])]}
+    cpu.params = to_device(gpu.params, "cpu")
+    cpu.opt_state = optim.AdamState(gpu.opt_state.step, to_device(gpu.opt_state.mu, "cpu"),
+                                    to_device(gpu.opt_state.nu, "cpu"))
+    res = {}
+    for name, tr in (("gpu", gpu), ("cpu", cpu)):
+        qq, pp = q.to(tr.device), p.to(tr.device)
+        t0 = time.perf_counter()
+        loss, grads = tr.loss_and_grads(qq, pp, draws[name][0], 1.0)
+        tr.train_steps(qq[None], pp[None], tr.plateau.lr, 1.0, 1, draws=draws[name])
+        if name == "gpu":
+            torch.cuda.synchronize()
+        res[name] = (loss.item(), {k: v.cpu() for k, v in tree.flatten(grads).items()},
+                     {k: v.cpu() for k, v in tree.flatten(tr.params).items()},
+                     time.perf_counter() - t0)
+    (lg, gg, pg, _), (lc, gc, pc, cpu_s) = res["gpu"], res["cpu"]
+    lr = gpu.plateau.lr
+    top = max(float(v.norm()) for v in gc.values())
+    grad_rel = max(float((gg[k] - gc[k]).norm()) / max(float(gc[k].norm()), 1e-3 * top)
+                   for k in gc)
+    diffs = torch.cat([(pg[k] - pc[k]).abs().reshape(-1) for k in pc])
+    over = int((diffs > 1e-5).sum())
+    unexplained = sum(int(((pg[k] - pc[k]).abs() > 1e-5).logical_and(
+        gc[k].abs() > max(1e-4 * float(gc[k].abs().max()), 1e-6)).sum()) for k in pc)
+    out = {"loss_gpu": lg, "loss_cpu": lc, "loss_rel_diff": abs(lg - lc) / abs(lc),
+           "grad_max_rel_norm_diff": grad_rel, "param_max_abs_diff": float(diffs.max()),
+           "params_over_1e-5": over, "params_over_1e-5_with_gradient": unexplained,
+           "params": int(diffs.numel()), "cpu_step_s": cpu_s}
+    check(out["loss_rel_diff"] <= 1e-4, f"aggregator step, card vs CPU loss: {out}")
+    check(grad_rel <= 1e-3, f"aggregator step, card vs CPU gradients: {out}")
+    check(float(diffs.max()) <= 2 * lr and unexplained == 0,
+          f"aggregator step, card vs CPU updated params: {out}")
+    return out
+
+
+def edge_forward_check(dev, tr) -> dict:
+    """``edge_forward`` over the bipartite graph (every node, random f32
+    features at the model's input width, the ratings as edge weights): two
+    bf16 calls on the card bitwise equal and launching the gather-pool
+    kernel once a conv; the card's f32 call within 1e-4 of the CPU's (plain
+    versions); the message sum against ``index_add_`` (its plain version)
+    and both timed."""
+    from movie_recommendation_engine_tpu_torch.models import pinsage
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    csr = tr.csr
+    n = csr.num_nodes
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn((n, tr.cfg.features.feature_dim), generator=gen, device=dev)
+    src = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  torch.as_tensor(np.diff(csr.indptr), device=dev))
+    dst = torch.as_tensor(csr.indices, device=dev)
+    w = torch.as_tensor(csr.weights, device=dev)
+    pool.LAUNCHES = 0
+    a = pinsage.edge_forward(tr.params, x, src, dst, w, dtype=torch.bfloat16)
+    launches = pool.LAUNCHES
+    b = pinsage.edge_forward(tr.params, x, src, dst, w, dtype=torch.bfloat16)
+    check(same_bits(a, b), "edge_forward: two calls on the card differ")
+    check(launches == tr.cfg.model.num_layers,
+          f"edge_forward launched gather_pool {launches} times, expected one a conv")
+    f32 = pinsage.edge_forward(tr.params, x, src, dst, w, dtype=torch.float32)
+    ref = pinsage.edge_forward(to_device(tr.params, "cpu"), x.cpu(), src.cpu(), dst.cpu(),
+                               w.cpu(), dtype=torch.float32)
+    err = float((f32.cpu() - ref).abs().max())
+    check(err <= 1e-4, f"edge_forward: card vs CPU {err}")
+    h = torch.randn((n, tr.cfg.model.hidden_dim), generator=gen, device=dev).bfloat16()
+    es = pool.edge_slices(src, dst, w, n)
+    got = pool.slice_sum(h, es)
+    plain = pool.slice_sum_plain(h, src, dst, w, n)
+    sum_err = float((got - plain).abs().max() / plain.abs().max())
+    check(sum_err <= 1e-5, f"edge message sum vs index_add_: {sum_err} relative")
+    return {"nodes": n, "edges": int(src.shape[0]), "slices": int(es.nbrs.shape[0]),
+            "launches": launches, "bitwise_repeat": True, "f32_vs_cpu_max_abs_err": err,
+            "message_sum_rel_err_vs_index_add": sum_err,
+            "message_sum": timed(lambda: pool.slice_sum(h, es), iters=20, kernels=2),
+            "message_sum_kernel": cuda_ms(lambda: pool.gather_pool(h, es.nbrs, es.weights, n)),
+            "index_add": cuda_ms(lambda: pool.slice_sum_plain(h, src, dst, w, n), iters=20),
+            "edge_forward_bf16_ms": cuda_ms(lambda: pinsage.edge_forward(
+                tr.params, x, src, dst, w, dtype=torch.bfloat16), iters=5)}
+
+
+def aggregators_phase(dev) -> dict:
+    """Each aggregator kind (and importance with batch norm) on the serve
+    phase's 4k corpus at full width, f32: one step on the card against the
+    same step on the CPU (``agg_step_vs_cpu``), and the card's step time;
+    then ``edge_forward_check``."""
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+    from movie_recommendation_engine_tpu_torch.graph import dataset
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+
+    base = default_config().override({"data.source": "synthetic",
+                                      "train.compute_dtype": "float32"})
+    data = dataset.load(base)
+    quiet = MetricsLogger(stream=io.StringIO())
+    out = {}
+    gpu = None
+    for name, over in AGG_KINDS:
+        cfg = base.override({"model.aggregator_type": name, **over})
+        gpu = Trainer(cfg, data, quiet, device=dev)
+        cpu = Trainer(cfg, data, quiet, device="cpu")
+        gpu.refresh_neighborhoods()
+        cpu.x_table = gpu.x_table.cpu()
+        cpu.set_neighborhood_tables([(nb.cpu(), w.cpu()) for nb, w in gpu.nbr_tables])
+        pairs = gpu._epoch_pairs(np.random.default_rng(0))
+        q = torch.as_tensor(pairs[0, :, 0], dtype=torch.int32, device=dev)
+        p = torch.as_tensor(pairs[0, :, 1], dtype=torch.int32, device=dev)
+        vs_cpu = agg_step_vs_cpu(gpu, cpu, q, p)
+
+        def step_ms():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            gpu.train_steps(q[None], p[None], gpu.plateau.lr, 1.0, 1)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3
+        walls = [step_ms() for _ in range(6)]
+        prof = device_profile(lambda: gpu.train_steps(q[None], p[None], gpu.plateau.lr, 1.0, 1),
+                              calls=3)
+        out[name] = {"rung": rung_of(gpu.pool_mats), "vs_cpu": vs_cpu,
+                     "step_wall_ms_median": statistics.median(walls[1:]),
+                     "device_ms": prof["device_ms"], "kernels_per_step": prof["kernels_per_call"],
+                     "top": prof["top"]}
+        del cpu
+    edge = edge_forward_check(dev, gpu)
+    emit("aggregators", corpus={"num_movies": data.num_movies}, compute_dtype="float32",
+         tolerance={"loss_rel": 1e-4, "grad_rel_norm": 1e-3, "param_abs": "2 lr"},
+         kinds=out, edge_forward=edge)
+    return {"gather_pool": {"launches_edge_forward": edge["launches"],
+                            "ms_edge_message_sum": edge["message_sum_kernel"]["ms"],
+                            "library_ms_edge_message_sum": edge["index_add"]["ms"]}}
+
+
+# ---------------------------------------------------------------------------
+# 14. the tools: tune, demo, train --profile, reference .pt checkpoints
+# ---------------------------------------------------------------------------
+
+def tools_phase(dev, d: str) -> None:
+    """On the card, at ``small_test_config`` widths with the gather rung
+    and ``gather_impl=pallas``: ``tune`` on a 2 x 1 grid (1 epoch each; the
+    CSV and ``best_tuned_model`` exist), ``demo`` on piped commands, ``train
+    --profile`` (the trace names the gather-pool kernel), and a reference
+    ``.pt`` written here from an engine's params, which loads and embeds as
+    those params do."""
+    import contextlib
+
+    from movie_recommendation_engine_tpu_torch import api, small_test_config
+    from movie_recommendation_engine_tpu_torch.cli.main import main as cli
+    from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+    from movie_recommendation_engine_tpu_torch.train.tune import hyperparameter_tuning
+
+    os.makedirs(d, exist_ok=True)
+    cfg = small_test_config().override({
+        "model.pool_impl": "gather", "model.gather_impl": "pallas", "train.epochs": 1,
+        "paths.checkpoint_dir": os.path.join(d, "ck"), "paths.output_dir": os.path.join(d, "out")})
+    cfg_path = os.path.join(d, "config.json")
+    with open(cfg_path, "w") as f:
+        f.write(cfg.to_json())
+    out = {}
+    log = MetricsLogger(stream=io.StringIO())
+    res = hyperparameter_tuning(cfg, log, learning_rates=(1e-3, 5e-4), hidden_dims=(64,),
+                                device=dev)
+    errors = [e for e in log.history if e["event"] == "tune_error"]
+    check(not errors and len(res["results"]) == 2, f"tune: {errors}")
+    check(os.path.exists(res["csv"]) and os.path.exists(
+        os.path.join(cfg.paths.checkpoint_dir, "best_tuned_model.npz")), "tune outputs")
+    out["tune"] = {"results": res["results"], "best": res["best"]}
+
+    eng = api.Engine(cfg, logger=log, device=dev)
+    mid = int(eng.data.movie_ids[4])
+    buf = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(f"search Midnight\nrecommend {mid}\npopular\nquit\n")
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["demo", "--device", dev.type, "--config", cfg_path])
+    finally:
+        sys.stdin = stdin
+    text = buf.getvalue()
+    recs = text.split("recommendations:")[1].split(">")[0].strip().splitlines()
+    check(rc == 0 and len(recs) == 10, f"demo: {text[-500:]}")
+    out["demo"] = {"rc": rc, "recommendations": len(recs), "output_lines": text.count("\n")}
+
+    trace_dir = os.path.join(d, "trace")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["train", "--device", dev.type, "--profile", trace_dir, "--config", cfg_path])
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    kern = sorted(n for n in names if "gather_pool" in n and "kernel" in n)
+    check(rc == 0 and kern, "train --profile: no gather-pool kernel in the trace")
+    out["profile"] = {"rc": rc, "kernels": kern, "events": len(names),
+                      "bytes": os.path.getsize(os.path.join(trace_dir, "trace.json"))}
+
+    params = eng.trainer.params
+    sd = {}
+    for name in ("input_proj", "output_proj"):
+        sd[f"{name}.weight"], sd[f"{name}.bias"] = params[name]["w"].t().cpu(), params[name]["b"].cpu()
+    for i, conv in enumerate(params["convs"]):
+        for ours, theirs in (("self", "lin_self"), ("neigh", "lin_neigh"), ("update", "lin_update")):
+            sd[f"convs.{i}.{theirs}.weight"] = conv[ours]["w"].t().cpu()
+            sd[f"convs.{i}.{theirs}.bias"] = conv[ours]["b"].cpu()
+    pt = os.path.join(d, "reference.pt")
+    torch.save({"epoch": 1, "model_state_dict": sd}, pt)
+    emb = eng.embeddings(refresh=True)
+    eng.trainer.params = None
+    eng.load_checkpoint(pt)
+    again = eng.embeddings()
+    err = float(np.abs(again - emb).max())
+    check(err <= 1e-6, f".pt checkpoint embeds {err} away from its params")
+    out["torch_checkpoint"] = {"max_abs_err": err, "rows": int(emb.shape[0])}
+    emit("tools", **out)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -1837,8 +2469,21 @@ def main() -> int:
     del hub_eng
     gc.collect()
     torch.cuda.empty_cache()
-    kernels = [pool_entry, bwd, ham]
     check_phase(dev)
+    with tempfile.TemporaryDirectory() as d:
+        extras = [movielens_phase(dev, d)]
+        gc.collect()
+        torch.cuda.empty_cache()
+        extras.append(cooc_phase(dev, d))
+        gc.collect()
+        torch.cuda.empty_cache()
+        extras.append(aggregators_phase(dev))
+        extras.append(tools_phase(dev, os.path.join(d, "tools")) or {})
+    for extra in extras:
+        pool_entry.update(extra.get("gather_pool", {}))
+        bwd.update(extra.get("gather_pool_bwd", {}))
+        ham.update(extra.get("hamming_distance", {}))
+    kernels = [pool_entry, bwd, ham]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

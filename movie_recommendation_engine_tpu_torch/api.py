@@ -36,7 +36,7 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg or default_config()
         self.log = logger or MetricsLogger(pretty=False)
-        self.data = dataset.load(self.cfg)
+        self.data = dataset.load(self.cfg, self.log)
         self.trainer = Trainer(self.cfg, self.data, self.log, device=self.device)
         self._emb: np.ndarray | None = None
 
@@ -52,11 +52,15 @@ class Engine:
 
     def load_checkpoint(self, path: str) -> "Engine":
         """A JAX-format ``.npz`` checkpoint (``core/checkpoint.py``), written
-        by either package."""
+        by either package, or a reference ``.pt`` checkpoint (its params
+        only, ``utils/torch_import.py``)."""
         if path.endswith(".pt"):
-            raise NotImplementedError(
-                "reference .pt checkpoints are not ported yet (ROADMAP queue 1)")
-        self.trainer.load_checkpoint(path)
+            from .utils.torch_import import load_torch_checkpoint
+
+            self.trainer.params, meta = load_torch_checkpoint(path, self.device)
+            self.log.log("loaded_torch_checkpoint", path=path, **meta)
+        else:
+            self.trainer.load_checkpoint(path)
         self._emb = None
         return self
 

@@ -3,15 +3,18 @@
     python -m movie_recommendation_engine_tpu_torch <mode> [--device cuda|cpu]
         [--set key=value ...]
 
-Ported modes: train | evaluate | recommend | benchmark | serve | all (port of
-``movie_recommendation_engine_tpu/cli/main.py``; ``train --resume`` resumes
-from ``last_model``; ``all`` runs train, evaluate and recommend). The other
-modes of the JAX CLI (tune, demo, download) exit with an error that points at
-ROADMAP.md. ``--device`` (default ``cuda``) replaces the JAX CLI's
-``--platform``; a run asked to use CUDA on a machine without it fails.
+Modes (those of ``movie_recommendation_engine_tpu/cli/main.py``): train |
+evaluate | recommend | benchmark | tune | demo | serve | download | all.
+``train --resume`` resumes from ``last_model``, ``train --profile DIR``
+writes a ``torch.profiler`` trace of training to ``DIR/trace.json``; ``tune``
+searches ``--lrs`` x ``--hidden-dims``; ``demo`` reads commands from stdin;
+``all`` runs train, evaluate and recommend. ``--checkpoint`` takes a
+JAX-format checkpoint (without ``.npz``) or a reference ``.pt``.
+``--device`` (default ``cuda``) replaces the JAX CLI's ``--platform``; a run
+asked to use CUDA on a machine without it fails.
 
 Config overrides use dotted keys into the typed Config, e.g.
-    --set search.search_method=lsh --set data.source=synthetic
+    --set search.search_method=lsh --set data.data_dir=/data/ml-25m
 """
 
 from __future__ import annotations
@@ -26,10 +29,10 @@ import numpy as np
 
 from ..config import Config, default_config
 from ..core import checkpoint as ckpt
-from ..core.logging import MetricsLogger
+from ..core.logging import TRACE_FILE, MetricsLogger, trace
 
-PORTED_MODES = ("train", "evaluate", "recommend", "benchmark", "serve", "all")
-OTHER_MODES = ("tune", "demo", "download")
+MODES = ("train", "evaluate", "recommend", "benchmark", "tune", "demo", "serve",
+         "download", "all")
 
 
 def _parse_overrides(pairs: list[str]) -> dict:
@@ -65,14 +68,17 @@ def _make_trainer(cfg: Config, logger: MetricsLogger, device):
     from ..graph import dataset
     from ..train.trainer import Trainer
 
-    return Trainer(cfg, dataset.load(cfg), logger, device=device)
+    return Trainer(cfg, dataset.load(cfg, logger), logger, device=device)
 
 
 def _load_checkpoint_if_any(tr, cfg: Config, args, logger) -> None:
     path = args.checkpoint or os.path.join(cfg.paths.checkpoint_dir, "best_model")
-    if path.endswith(".pt"):
-        raise SystemExit("reference .pt checkpoints are not ported yet (ROADMAP queue 1)")
-    if os.path.exists(path + ".npz"):
+    if path.endswith(".pt") and os.path.exists(path):
+        from ..utils.torch_import import load_torch_checkpoint
+
+        tr.params, meta = load_torch_checkpoint(path, tr.device)
+        logger.log("loaded_torch_checkpoint", path=path, **meta)
+    elif os.path.exists(path + ".npz"):
         tr.load_checkpoint(path)
         logger.log("loaded_checkpoint", path=path)
 
@@ -81,7 +87,10 @@ def cmd_train(cfg: Config, args) -> int:
     logger = MetricsLogger()
     tr = _make_trainer(cfg, logger, args.device)
     resume = os.path.join(cfg.paths.checkpoint_dir, "last_model") if args.resume else None
-    result = tr.fit(resume_from=resume)
+    with trace(args.profile):
+        result = tr.fit(resume_from=resume)
+    if args.profile:
+        logger.log("profile", path=os.path.join(args.profile, TRACE_FILE))
     logger.log("done", best_metric=result["best_metric"])
     return 0
 
@@ -198,6 +207,32 @@ def cmd_benchmark(cfg: Config, args) -> int:
     return 0
 
 
+def cmd_tune(cfg: Config, args) -> int:
+    from ..train.tune import hyperparameter_tuning
+
+    logger = MetricsLogger()
+    kwargs = {}
+    if args.lrs:
+        kwargs["learning_rates"] = [float(v) for v in args.lrs.split(",") if v.strip()]
+    if args.hidden_dims:
+        kwargs["hidden_dims"] = [int(v) for v in args.hidden_dims.split(",") if v.strip()]
+    result = hyperparameter_tuning(cfg, logger, device=args.device, **kwargs)
+    logger.log("tune_done", best=result["best"])
+    return 0
+
+
+def cmd_demo(cfg: Config, args) -> int:
+    from .demo import run_demo
+
+    return run_demo(cfg, args)
+
+
+def cmd_download(cfg: Config, args) -> int:
+    from ..graph.download import download_ml25m
+
+    return 0 if download_ml25m(cfg.data.data_dir) else 1
+
+
 def cmd_serve(cfg: Config, args) -> int:
     """Persistent batched recommendation server over the configured index."""
     from ..retrieval.server import BatchingRecommender, make_http_server
@@ -230,7 +265,7 @@ def main(argv: list[str] | None = None) -> int:
         description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
-    ap.add_argument("mode", choices=PORTED_MODES + OTHER_MODES)
+    ap.add_argument("mode", choices=MODES)
     ap.add_argument("--config", help="path to a Config JSON")
     ap.add_argument("--set", action="append", default=[],
                     help="dotted config override key=value (repeatable)")
@@ -245,20 +280,22 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--save-csv", action="store_true")
     ap.add_argument("--resume", action="store_true",
                     help="train mode: resume from checkpoint_dir/last_model")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="train mode: write a torch.profiler trace of training to DIR")
+    ap.add_argument("--lrs", default=None,
+                    help="tune mode: comma list of learning rates (default 1e-3,5e-4)")
+    ap.add_argument("--hidden-dims", default=None,
+                    help="tune mode: comma list of hidden dims (default 128,256)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="device to run on (default cuda; fails without it)")
     args = ap.parse_args(argv)
-    if args.mode in OTHER_MODES:
-        raise SystemExit(f"mode {args.mode!r} is not ported to the PyTorch package "
-                         f"yet (not ported: {', '.join(OTHER_MODES)}); see ROADMAP.md "
-                         "queue 1 (the JAX package runs it: python -m "
-                         "movie_recommendation_engine_tpu)")
     cfg = _load_config(args)
     if args.mode == "all":
         return (cmd_train(cfg, args) or cmd_evaluate(cfg, args)
                 or cmd_recommend(cfg, args))
     return {"train": cmd_train, "evaluate": cmd_evaluate, "recommend": cmd_recommend,
-            "benchmark": cmd_benchmark, "serve": cmd_serve}[args.mode](cfg, args)
+            "benchmark": cmd_benchmark, "tune": cmd_tune, "demo": cmd_demo,
+            "serve": cmd_serve, "download": cmd_download}[args.mode](cfg, args)
 
 
 if __name__ == "__main__":

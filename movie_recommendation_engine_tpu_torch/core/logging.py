@@ -1,12 +1,15 @@
-"""Structured metrics logging: every record is one JSON line.
+"""Structured metrics logging (every record is one JSON line) and traces.
 
-Copy of ``MetricsLogger`` from ``movie_recommendation_engine_tpu/core/logging.py``
-(the JAX profiler hook is not ported).
+Port of ``movie_recommendation_engine_tpu/core/logging.py``: ``MetricsLogger``
+as it is, and ``trace``, which takes a ``torch.profiler`` trace where JAX
+takes a ``jax.profiler`` one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
 import time
 from typing import Any
@@ -34,3 +37,30 @@ def _jsonable(v: Any) -> Any:
         return v
     except TypeError:
         return str(v)
+
+
+TRACE_FILE = "trace.json"
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | None):
+    """A ``torch.profiler`` trace of the block (CPU activity, and CUDA
+    activity when a card is present), exported as a Chrome trace to
+    ``log_dir/trace.json``; a no-op when ``log_dir`` is None."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.ranking import top_k
+
 
 def _ranks(embeddings: torch.Tensor, query_idx: torch.Tensor,
            gt_idx: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
@@ -59,9 +61,10 @@ def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),
 
 def recommend(embeddings: torch.Tensor, query_idx: torch.Tensor, k: int = 10,
               exclude_query: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k by inner product per query: (scores [Q, k], indices [Q, k])."""
+    """Top-k by inner product per query: (scores [Q, k], indices [Q, k]),
+    the lower index first among equal scores."""
     sims = embeddings[query_idx] @ embeddings.T
     if exclude_query:
         rows = torch.arange(query_idx.shape[0], device=sims.device)
         sims[rows, query_idx] = -torch.inf
-    return torch.topk(sims, k, dim=1)
+    return top_k(sims, k)

@@ -1,21 +1,28 @@
-"""Dataset ingest: the synthetic generator -> packed arrays.
+"""Dataset ingest: MovieLens CSVs (or the synthetic generator) -> packed arrays.
 
-Copy of ``movie_recommendation_engine_tpu/graph/dataset.py`` for
-``data.source="synthetic"``: filters users with fewer than
-``min_interactions`` ratings (``data/dataset.py:56-58``), builds contiguous
-id<->idx maps (``data/dataset.py:77-89``), and exposes vectorized
-graph/split/feature construction. The MovieLens CSV reader (pandas plus the
-native ratings parser) is not ported yet (ROADMAP queue 1, "movielens
-ingest").
+Port of ``movie_recommendation_engine_tpu/graph/dataset.py``: filters users
+with fewer than ``min_interactions`` ratings (``data/dataset.py:56-58``),
+builds contiguous id<->idx maps (``data/dataset.py:77-89``), and exposes
+vectorized graph/split/feature construction. The JAX package reads the CSVs
+with pandas; this one has no pandas, so ``ratings.csv`` goes through the
+native parser (``utils/ingest_native``, with a stdlib reader as its plain
+version) and the other three files through the stdlib ``csv`` module, which
+gives the fields pandas' ``read_csv`` defaults give: its NA strings read as
+missing, quoted fields unquoted, integer columns parsed as integers.
 """
 
 from __future__ import annotations
 
+import csv
+import os
+import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from ..config import Config
+from ..core.logging import MetricsLogger
 from . import builders, split as split_mod, synthetic
 from .csr import CSRGraph
 
@@ -76,11 +83,12 @@ class MovieLensData:
         )
 
     def build_item_similarity_graph(
-        self, threshold: int = 5, max_items_per_user: int | None = None
+        self, threshold: int = 5, max_items_per_user: int | None = None,
+        logger: MetricsLogger | None = None,
     ) -> CSRGraph:
         return builders.build_item_similarity_graph(
             self.user_idx, self.movie_idx, self.num_movies,
-            threshold=threshold, max_items_per_user=max_items_per_user,
+            threshold=threshold, max_items_per_user=max_items_per_user, logger=logger,
         )
 
     def temporal_split(self, val_ratio: float = 0.1, test_ratio: float = 0.2):
@@ -127,16 +135,20 @@ def _map_and_filter(
         uids, mids, vals, ts = uids[sel], mids[sel], vals[sel], ts[sel]
 
     # Contiguous maps in first-appearance order (pd.unique-like).
-    movie_ids, movie_first = np.unique(mids, return_index=True)
-    movie_ids = mids[np.sort(movie_first)]
-    user_ids, user_first = np.unique(uids, return_index=True)
-    user_ids = uids[np.sort(user_first)]
-
-    movie_lut = {int(v): i for i, v in enumerate(movie_ids)}
-    user_lut = {int(v): i for i, v in enumerate(user_ids)}
-    movie_idx = np.fromiter((movie_lut[int(v)] for v in mids), dtype=np.int64, count=mids.shape[0])
-    user_idx = np.fromiter((user_lut[int(v)] for v in uids), dtype=np.int64, count=uids.shape[0])
+    movie_ids, movie_idx = _first_appearance(mids)
+    user_ids, user_idx = _first_appearance(uids)
     return user_idx, movie_idx, vals, ts, movie_ids, user_ids
+
+
+def _first_appearance(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(the distinct values of ``x`` in order of first appearance, the int64
+    index of each element among them): the JAX package's per-row dict
+    lookups, vectorized."""
+    uniq, first, inv = np.unique(x, return_index=True, return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(order.shape[0], np.int64)
+    rank[order] = np.arange(order.shape[0])
+    return uniq[order], rank[inv.reshape(-1)]
 
 
 def _attach_metadata(
@@ -186,13 +198,118 @@ def load_synthetic(cfg: Config) -> MovieLensData:
     return _from_columns(raw, cfg)
 
 
-def load_movielens_csv(cfg: Config) -> MovieLensData:
-    """Not ported yet: the JAX reader needs pandas and the native ratings
-    parser (``utils/ingest_native``)."""
-    raise NotImplementedError(
-        "data.source='movielens' is not ported to the PyTorch package yet "
-        "(ROADMAP queue 1, 'movielens ingest'); use data.source='synthetic'"
-    )
+# pandas' ``read_csv`` default NA strings (``pandas._libs.parsers.STR_NA_VALUES``):
+# the JAX loader reads the CSVs with pandas, where a field equal to one of
+# them (quoted or not) is missing.
+NA_STRINGS = frozenset({
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
+
+
+def _read_columns(path: str, names: tuple[str, ...]) -> list[list[str]]:
+    """The named columns of a CSV with a header row, as unquoted strings."""
+    with open(path, newline="", encoding="utf-8") as f:
+        rows = csv.reader(f)
+        header = next(rows)
+        pos = [header.index(n) for n in names]
+        cols: list[list[str]] = [[] for _ in names]
+        for row in rows:
+            if not row:
+                continue
+            for col, p in zip(cols, pos):
+                col.append(row[p])
+    return cols
+
+
+def _int_or(values: list[str], missing: int) -> np.ndarray:
+    """int64 column; NA strings -> ``missing`` (pandas' NaN, then fillna)."""
+    return np.array([missing if v in NA_STRINGS else int(v) for v in values], np.int64)
+
+
+def read_ratings_python(path: str):
+    """The native parser's plain version: (user ids int32, movie ids int32,
+    ratings f32, timestamps int64) read with the stdlib ``csv`` module."""
+    u, m, r, t = _read_columns(path, ("userId", "movieId", "rating", "timestamp"))
+    return (np.array(u, np.int64).astype(np.int32), np.array(m, np.int64).astype(np.int32),
+            np.array(r, np.float64).astype(np.float32), np.array(t, np.int64))
+
+
+def _read_ratings(path: str, threads: int, logger: MetricsLogger | None):
+    """``ratings.csv`` through the native parser with ``threads`` threads,
+    or through ``read_ratings_python`` when the parser does not build; logs
+    the route (``ingest``)."""
+    from ..utils import ingest_native, native
+
+    t0 = time.perf_counter()
+    route, reason = "native", None
+    try:
+        cols = ingest_native.read_ratings_csv(path, num_threads=threads)
+    except native.BuildError as e:
+        route, reason = "python", str(e)
+        cols = read_ratings_python(path)
+    if logger is not None:
+        logger.log("ingest", route=route, reason=reason, rows=int(cols[0].shape[0]),
+                   threads=threads if route == "native" else 1,
+                   seconds=time.perf_counter() - t0)
+    return cols
+
+
+def load_movielens_csv(cfg: Config, logger: MetricsLogger | None = None) -> MovieLensData:
+    """Load movies / ratings / tags / links CSVs from ``cfg.data.data_dir``
+    (reference ``data/dataset.py:41-75``). The four files load concurrently
+    on a pool of ``min(train.num_workers, 4)`` threads, and the ratings
+    parser uses ``train.num_workers`` threads. ``tags.csv`` and ``links.csv``
+    are optional."""
+    d = cfg.data.data_dir
+    workers = max(int(cfg.train.num_workers), 1)
+
+    def load_movies():
+        ids, titles, genres = _read_columns(os.path.join(d, "movies.csv"),
+                                            ("movieId", "title", "genres"))
+        return (np.array(ids, np.int64), ["" if t in NA_STRINGS else t for t in titles],
+                ["" if g in NA_STRINGS else g for g in genres])
+
+    def load_tags():
+        path = os.path.join(d, "tags.csv")
+        if not os.path.exists(path):
+            return None
+        ids, tags = _read_columns(path, ("movieId", "tag"))
+        # A missing tag is "nan", as pandas' astype(str) of NaN; _join_tags
+        # drops it.
+        return np.array(ids, np.int64), np.array(
+            ["nan" if t in NA_STRINGS else t for t in tags], dtype=object)
+
+    def load_links():
+        path = os.path.join(d, "links.csv")
+        if not os.path.exists(path):
+            return None
+        ids, imdb, tmdb = _read_columns(path, ("movieId", "imdbId", "tmdbId"))
+        return np.array(ids, np.int64), _int_or(imdb, -1), _int_or(tmdb, -1)
+
+    with ThreadPoolExecutor(max_workers=min(workers, 4)) as pool:
+        f_movies = pool.submit(load_movies)
+        f_ratings = pool.submit(_read_ratings, os.path.join(d, "ratings.csv"), workers, logger)
+        f_tags = pool.submit(load_tags)
+        f_links = pool.submit(load_links)
+        movie_ids, titles, genres = f_movies.result()
+        ratings_cols = f_ratings.result()
+        tag_cols = f_tags.result()
+        link_cols = f_links.result()
+
+    raw: dict = {
+        "movie_ids": movie_ids,
+        "titles": titles,
+        "genres": genres,
+        "rating_user_ids": ratings_cols[0],
+        "rating_movie_ids": ratings_cols[1],
+        "rating_values": ratings_cols[2],
+        "rating_timestamps": ratings_cols[3],
+    }
+    if tag_cols is not None:
+        raw["tag_movie_ids"], raw["tag_values"] = tag_cols
+    if link_cols is not None:
+        raw["link_movie_ids"], raw["link_imdb"], raw["link_tmdb"] = link_cols
+    return _from_columns(raw, cfg)
 
 
 def _from_columns(raw: dict, cfg: Config) -> MovieLensData:
@@ -225,7 +342,9 @@ def _from_columns(raw: dict, cfg: Config) -> MovieLensData:
     )
 
 
-def load(cfg: Config) -> MovieLensData:
+def load(cfg: Config, logger: MetricsLogger | None = None) -> MovieLensData:
+    """``data.source``: "synthetic" (the generator) or "movielens" (the CSVs
+    in ``data.data_dir``; ``logger`` receives the ``ingest`` event)."""
     if cfg.data.source == "synthetic":
         return load_synthetic(cfg)
-    return load_movielens_csv(cfg)
+    return load_movielens_csv(cfg, logger)

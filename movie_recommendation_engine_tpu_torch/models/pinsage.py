@@ -1,14 +1,18 @@
 """PinSage forwards as PyTorch functions on tensors.
 
 Port of ``movie_recommendation_engine_tpu/models/pinsage.py``: the MLP path
-(a), and the importance-pooling path (b) in gather form (``pooled_forward``,
-optionally with pooling operators for a prefix of the layers: dense
-matrices, hub or block operators, ``_pool_apply``) and dense-matrix form
-(``pooled_forward_dense``), each with the batch-restricted
+(a); the neighborhood-pooling path (b) in gather form (``pooled_forward``,
+each gather layer through ``model.aggregator_type``'s aggregator,
+``models/aggregators.py``; optionally with pooling operators for a prefix of
+the layers: dense matrices, hub or block operators, ``_pool_apply``) and
+dense-matrix form (``pooled_forward_dense``), each with the batch-restricted
 training form (``pooled_forward_batch[_dense]``) and inverted dropout after
-the hidden convs (``_dropout``). Parameters keep the
-JAX layout — a dict ``{"input_proj", "convs": [...], "output_proj"}`` of
-``{"w": [in, out], "b": [out]}`` f32 tensors — so JAX weights load one to one.
+the hidden convs (``_dropout``); and the edge_index path (c),
+``edge_forward``, with ``forward`` dispatching among the three. Parameters
+keep the JAX layout — a dict ``{"input_proj", "convs": [...], "output_proj"}``
+of ``{"w": [in, out], "b": [out]}`` f32 tensors, a conv's aggregator
+parameters under ``"agg"`` and its batch norm under ``"bn"`` — so JAX
+weights load one to one.
 
 Dtype contract (as in the JAX package): activations in ``dtype`` (bf16 by
 default), pooling accumulated in f32, L2 norms in f32, params f32.
@@ -25,7 +29,8 @@ import torch
 
 from ..ops.block_sparse import BlockPool, block_pool_matmul
 from ..ops.hub_pool import HubPool, hub_pool_matmul, hub_pool_matmul_batch, take_rows
-from ..ops.pool import SegmentLayout, gather_pool
+from ..ops.pool import SegmentLayout, edge_slices, gather_pool, slice_sum
+from . import aggregators
 
 Params = dict[str, Any]
 
@@ -54,11 +59,9 @@ def init_params(gen: torch.Generator, in_dim: int, hidden_dim: int,
                 init_style: str = "he_zero_bias", device=None) -> Params:
     """Same shapes and distributions as the JAX ``init_params``, drawn from a
     ``torch.Generator`` (the numbers differ from JAX's; tests inject JAX's
-    params through ``core.checkpoint.params_from_jax``)."""
-    if aggregator != "importance":
-        raise NotImplementedError(
-            f"aggregator {aggregator!r} is not ported yet (ROADMAP queue 1); "
-            "only 'importance' pooling is")
+    params through ``core.checkpoint.params_from_jax``): an aggregator with
+    parameters gets them under ``conv["agg"]``, ``use_batch_norm`` a scale
+    and bias under ``conv["bn"]``."""
     device = gen.device if device is None else device
     params: Params = {
         "input_proj": _linear_init(gen, in_dim, hidden_dim, init_style, device),
@@ -71,6 +74,10 @@ def init_params(gen: torch.Generator, in_dim: int, hidden_dim: int,
             "neigh": _linear_init(gen, hidden_dim, hidden_dim, init_style, device),
             "update": _linear_init(gen, 2 * hidden_dim, hidden_dim, init_style, device),
         }
+        agg = aggregators.init_aggregator_params(gen, aggregator, hidden_dim, hidden_dim,
+                                                 device=device)
+        if agg is not None:
+            conv["agg"] = agg
         if use_batch_norm:
             conv["bn"] = {"scale": torch.ones(hidden_dim, device=device),
                           "bias": torch.zeros(hidden_dim, device=device)}
@@ -223,12 +230,13 @@ def _hidden_dropout(h: torch.Tensor, i: int, rate: float, generator, keep) -> to
     return _dropout(h, rate, generator, None if keep is None else keep[i])
 
 
-def _gather_layer(h, nbrs, w, valid_limit, dtype, aggregator, gather_impl, bwd_layout=None):
-    if aggregator != "importance":
-        raise NotImplementedError(
-            f"aggregator {aggregator!r} is not ported yet (ROADMAP queue 1)")
-    return importance_pool(h, nbrs, w, valid_limit, dtype, impl=gather_impl,
-                           bwd_layout=bwd_layout)
+def _gather_layer(conv, h, h_self, nbrs, w, valid_limit, dtype, aggregator, gather_impl,
+                  bwd_layout=None):
+    """One layer's neighborhood pooling through its aggregator, in ``dtype``;
+    ``h_self`` are the rows being pooled for (attention's query)."""
+    return aggregators.aggregate(aggregator, conv.get("agg"), h, nbrs, w, self_feats=h_self,
+                                 valid_limit=valid_limit, dtype=dtype,
+                                 gather_impl=gather_impl, bwd_layout=bwd_layout).to(dtype)
 
 
 def pooled_forward_dense(params: Params, x_table: torch.Tensor,
@@ -270,7 +278,7 @@ def pooled_forward(params: Params, x_table: torch.Tensor,
             h_neigh = _pool_apply(pool_mats[i], h, dtype, gather_impl)
         else:
             h_neigh = _gather_layer(
-                h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
+                conv, h, h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
                 layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
                 aggregator, gather_impl)
         h = _conv_block(conv, h, h_neigh, dtype)
@@ -311,7 +319,7 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
             h_neigh = _pool_apply(pool_mats[i], h, dtype, gather_impl, layout)
         else:
             h_neigh = _gather_layer(
-                h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
+                conv, h, h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
                 layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
                 aggregator, gather_impl, layout)
         h = _conv_block(conv, h, h_neigh, dtype)
@@ -330,8 +338,8 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
         nbrs = layer_neighbors[min(li, len(layer_neighbors) - 1)]
         w = layer_weights[min(li, len(layer_weights) - 1)]
         rows = batch_nodes.long().clamp(0, nbrs.shape[0] - 1)
-        h_neigh = _gather_layer(h, nbrs[rows], w[rows], valid_limit, dtype, aggregator,
-                                gather_impl)
+        h_neigh = _gather_layer(last, h, h[idx], nbrs[rows], w[rows], valid_limit, dtype,
+                                aggregator, gather_impl)
     h_out = _conv_block(last, h[idx], h_neigh, dtype)
     return l2_normalize(linear(params["output_proj"], h_out, dtype).float())
 
@@ -351,3 +359,44 @@ def pooled_forward_batch_dense(params: Params, x_table: torch.Tensor,
     return pooled_forward_batch(params, x_table, [], [], batch_nodes, dtype=dtype,
                                 dropout_rate=dropout_rate, generator=generator,
                                 dropout_keep=dropout_keep, pool_mats=pool_mats)
+
+
+def edge_forward(params: Params, x: torch.Tensor, edge_src: torch.Tensor,
+                 edge_dst: torch.Tensor, edge_weight: torch.Tensor | None = None,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Path (c), GraphConv message passing: per conv, the message
+    ``lin_neigh(h)[src] * edge_weight`` summed into ``dst`` in f32
+    (``aggr="add"``), then concat / update / ReLU / L2 norm.
+
+    Where JAX scatters one message per edge (``segment_sum``), each target's
+    incoming edges, in edge order, are cut into slices (``ops.pool.
+    edge_slices``, weights the raw edge weights or 1) that one
+    ``gather_pool`` call sums (the gather-pool kernel on the card), and a
+    target's slices are added in order (``ops.pool.slice_sum``): the sums
+    run in a fixed order, so a call repeats bit for bit."""
+    n, dev = x.shape[0], x.device
+    src, dst = torch.as_tensor(edge_src, device=dev), torch.as_tensor(edge_dst, device=dev)
+    w = (torch.ones(src.shape[0], device=dev) if edge_weight is None
+         else torch.as_tensor(edge_weight, device=dev))
+    slices = edge_slices(src, dst, w, n)
+    h = torch.relu(linear(params["input_proj"], x, dtype))
+    for conv in params["convs"]:
+        transformed = linear(conv["neigh"], h, dtype)
+        h = _conv_block(conv, h, slice_sum(transformed, slices).to(dtype), dtype)
+    return l2_normalize(linear(params["output_proj"], h, dtype).float())
+
+
+def forward(params: Params, x: torch.Tensor, edge_index=None, sampled_neighbors=None,
+            importance_weights=None, **kw) -> torch.Tensor:
+    """Path selection of the reference's ``PinSage.forward``: the MLP path
+    without graph inputs, the pooled path with per-layer neighborhoods and
+    weights, else the edge path over ``edge_index`` ([2, E] or a (src, dst)
+    pair, ``edge_weight`` in ``kw``)."""
+    dtype = kw.get("dtype", torch.bfloat16)
+    if edge_index is None and (sampled_neighbors is None or importance_weights is None):
+        return mlp_forward(params, x, dtype)
+    if edge_index is None:
+        kw.pop("edge_weight", None)      # the pooled path has no edge weights
+        return pooled_forward(params, x, sampled_neighbors, importance_weights, **kw)
+    return edge_forward(params, x, edge_index[0], edge_index[1], kw.get("edge_weight"),
+                        dtype=dtype)

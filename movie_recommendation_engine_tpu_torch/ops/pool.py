@@ -27,6 +27,11 @@ column slice of the table's reachable rows in each block's shared memory and
 gathers from there, for tables whose slice fits. Both give bitwise equal
 results. ``plan`` picks ``direct`` unless told otherwise: on an H100 it beat
 ``resident`` at the serving shape (``PERF.md``, measured by ``chip_smoke.py``).
+
+``edge_slices`` / ``slice_sum`` sum a weighted edge list by target through
+the kernel (a target's incoming edges cut into slices, one ``gather_pool``
+call, then each target's slices in order): the PPR push and the edge
+forward's message sum, bitwise repeatable where ``index_add_`` is not.
 """
 
 from __future__ import annotations
@@ -612,3 +617,58 @@ def gather_pool_bwd(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tens
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return d_table, d_w
+
+
+class EdgeSlices(NamedTuple):
+    """A weighted edge list summed by target through the gather-pool kernel:
+    slice s sums ``weights[s, c] * x[nbrs[s, c]]`` (empty slots hold the
+    sentinel ``num_nodes`` and weight 0), and target t adds its ``slices[t]``
+    (at least 1) consecutive slices."""
+
+    nbrs: torch.Tensor      # [S, width] int32 source ids
+    weights: torch.Tensor   # [S, width] f32 edge weights
+    slices: torch.Tensor    # [N] int64 slices per target row
+    num_nodes: int
+
+
+def edge_slices(src: torch.Tensor, dst: torch.Tensor, weights: torch.Tensor,
+                num_nodes: int, width: int = 16) -> EdgeSlices:
+    """Each target's incoming edges, in the order they are given, cut into
+    slices of at most ``width`` edges, on the edges' device."""
+    dev = src.device
+    order = torch.sort(dst, stable=True).indices
+    src, weights = src[order], weights[order].float()
+    in_deg = torch.bincount(dst, minlength=num_nodes)
+    first_edge = torch.cumsum(in_deg, 0) - in_deg
+    slices = (-(-in_deg // width)).clamp_min(1)
+    row = torch.repeat_interleave(torch.arange(num_nodes, device=dev), slices)
+    first_slice = torch.cumsum(slices, 0) - slices
+    j = torch.arange(row.shape[0], device=dev) - first_slice[row]      # slice within row
+    slot = torch.arange(width, device=dev)
+    edge = (first_edge[row] + j * width)[:, None] + slot[None, :]
+    valid = slot[None, :] < (in_deg[row] - j * width)[:, None]
+    if src.numel():
+        edge = edge.clamp(max=src.shape[0] - 1)
+        nbrs = torch.where(valid, src[edge], num_nodes)
+        w = torch.where(valid, weights[edge], 0.0)
+    else:
+        nbrs = torch.full(edge.shape, num_nodes, device=dev)
+        w = torch.zeros(edge.shape, device=dev)
+    return EdgeSlices(nbrs.to(torch.int32).contiguous(), w.contiguous(), slices, num_nodes)
+
+
+def slice_sum(x: torch.Tensor, es: EdgeSlices) -> torch.Tensor:
+    """[num_nodes, D] f32: row t sums ``weight * x[src]`` over t's incoming
+    edges: one ``gather_pool`` call over the slices, then each target's
+    slices in order (``segment_reduce``). Both sum in a fixed order, so the
+    result repeats bit for bit."""
+    partial = gather_pool(x.contiguous(), es.nbrs, es.weights, es.num_nodes)    # [S, D]
+    return torch.segment_reduce(partial, "sum", lengths=es.slices)
+
+
+def slice_sum_plain(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                    weights: torch.Tensor, num_nodes: int) -> torch.Tensor:
+    """``slice_sum``'s plain version: ``index_add_`` of ``weight * x[src]``
+    into ``dst`` in f32 (on the card its sums' order is not fixed)."""
+    out = torch.zeros((num_nodes, x.shape[1]), dtype=torch.float32, device=x.device)
+    return out.index_add_(0, dst.long(), x[src.long()].float() * weights.float()[:, None])

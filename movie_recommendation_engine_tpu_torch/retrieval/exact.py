@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
+from ..core.ranking import top_k
 
 
 class ExactIndex:
@@ -39,9 +40,9 @@ class ExactIndex:
 def _l2_topk(q: torch.Tensor, emb: torch.Tensor, sqnorm: torch.Tensor, k: int):
     ip = q @ emb.T
     dist = (q * q).sum(dim=1, keepdim=True) + sqnorm[None, :] - 2.0 * ip
-    return torch.topk(dist, k, dim=1, largest=False)
+    return top_k(dist, k, largest=False)
 
 
 def similarity_topk(q: torch.Tensor, emb: torch.Tensor, k: int):
     """Inner-product variant (the same ranking for unit-norm embeddings)."""
-    return torch.topk(q @ emb.T, k, dim=1)
+    return top_k(q @ emb.T, k)

@@ -17,8 +17,8 @@ partitions, nprobe = min(partitions, 20)):
   exact L2, merge into a running top-k. The peak transient is one probe's
   block.
 
-Ranks take stable sorts, so the lower position comes first among equal
-distances (``jax.lax.top_k``'s order). The initial centroids are rows
+Ranks go through ``core.ranking.top_k``, so the lower position comes first
+among equal distances (``jax.lax.top_k``'s order). The initial centroids are rows
 ``init_idx`` when given, else a draw from a ``torch.Generator`` seeded with
 ``seed`` (not JAX's numbers).
 """
@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.ranking import top_k
 
 
 def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -177,12 +178,6 @@ class WeakANDIndex:
                           self._perm, self.nprobe, budget, k)
 
 
-def _smallest(d: torch.Tensor, k: int) -> torch.Tensor:
-    """Positions of the k smallest per row, the lower position first among
-    equals."""
-    return torch.sort(d, dim=1, stable=True).indices[:, :k]
-
-
 def ivf_search(q: torch.Tensor, emb: torch.Tensor, norm2: torch.Tensor,
                centroids: torch.Tensor, offsets: torch.Tensor, perm: torch.Tensor,
                nprobe: int, budget: int, k: int):
@@ -190,7 +185,7 @@ def ivf_search(q: torch.Tensor, emb: torch.Tensor, norm2: torch.Tensor,
     each, one list per step, keeping a running top-``min(k, nprobe *
     budget)``; pad to ``k`` with ``inf`` / -1 and map rows to original ids."""
     qn = q.shape[0]
-    probe = _smallest(_sq_dists(q, centroids), nprobe)               # [Q, nprobe]
+    probe = top_k(_sq_dists(q, centroids), nprobe, largest=False)[1]               # [Q, nprobe]
     starts, ends = offsets[probe], offsets[probe + 1]
     q_norm2 = (q * q).sum(dim=1, keepdim=True)
     slot = torch.arange(budget, device=q.device)
@@ -205,7 +200,7 @@ def ivf_search(q: torch.Tensor, emb: torch.Tensor, norm2: torch.Tensor,
         dist = torch.where(valid, q_norm2 - 2.0 * ip + norm2[cand], float("inf"))
         all_d = torch.cat([best_d, dist], dim=1)
         all_i = torch.cat([best_i, cand], dim=1)
-        pos = _smallest(all_d, kk)
+        pos = top_k(all_d, kk, largest=False)[1]
         best_d, best_i = all_d.gather(1, pos), all_i.gather(1, pos)
     if kk < k:
         best_d = torch.nn.functional.pad(best_d, (0, k - kk), value=float("inf"))

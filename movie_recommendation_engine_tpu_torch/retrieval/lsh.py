@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.ranking import top_k
 from ..ops.hamming import hamming_topk, smallest_k
 from ..ops.hub_pool import _mm_f32
 
@@ -134,10 +135,10 @@ class LSHIndex:
 def _exact_rerank(q: torch.Tensor, emb: torch.Tensor, sqnorm: torch.Tensor,
                   cand: torch.Tensor, k: int):
     """Exact re-scoring of a [Q, C] candidate shortlist by squared L2
-    distance (the ExactIndex expansion), top-k."""
+    distance (the ExactIndex expansion), top-k in ``lax.top_k``'s order."""
     ip = torch.einsum("qd,qcd->qc", q, emb[cand])
     dist = (q * q).sum(dim=1, keepdim=True) + sqnorm[cand] - 2.0 * ip
-    d, j = torch.topk(dist, k, dim=1, largest=False)
+    d, j = top_k(dist, k, largest=False)
     return d, cand.gather(1, j)
 
 

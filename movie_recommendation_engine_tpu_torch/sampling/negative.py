@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core.ranking import top_k
 from .random_walk import DeviceGraph, _run_length_counts, random_walks
 
 
@@ -27,14 +28,6 @@ def sample_random_negatives(num_movies: int, num_samples: int,
     """[num_samples] distinct movie indices, int32."""
     perm = torch.randperm(num_movies, generator=generator, device=device)
     return perm[:num_samples].to(torch.int32)
-
-
-def _top(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """The ``k`` largest of each row and their positions, the lower position
-    first among equal values (``lax.top_k``'s order; ``torch.topk`` leaves
-    the order of ties undefined)."""
-    values, pos = torch.sort(x, dim=1, descending=True, stable=True)
-    return values[:, :k], pos[:, :k]
 
 
 def sample_hard_negatives(graph: DeviceGraph, query_nodes: torch.Tensor,
@@ -63,14 +56,14 @@ def sample_hard_negatives(graph: DeviceGraph, query_nodes: torch.Tensor,
     visited = random_walks(graph, query_nodes, num_walks, walk_length, n_iters,
                            generator=generator, uniforms=uniforms)
     v = torch.sort(visited.long(), dim=1).values
-    top_counts, pos = _top(_run_length_counts(v, graph.sentinel), hi)
+    top_counts, pos = top_k(_run_length_counts(v, graph.sentinel), hi)
     window_nodes = v.gather(1, pos)[:, min_rank:hi]
     valid = (top_counts[:, min_rank:hi] > 0) & (window_nodes < num_movies)
     if noise is None:
         noise = torch.rand(window_nodes.shape, generator=generator, device=device)
     score = torch.where(valid, noise, -torch.inf)
     kk = min(num_hard, window_nodes.shape[1])
-    top_scores, sel = _top(score, kk)
+    top_scores, sel = top_k(score, kk)
     chosen = window_nodes.gather(1, sel)
     chosen_ok = torch.isfinite(top_scores)
     if kk < num_hard:

@@ -9,16 +9,17 @@ with P the row-normalized weighted adjacency. Where JAX materializes one
 [B, E] message per edge and scatters it, the port keeps the frontier as
 [N, B] columns and pushes it through the transpose of P (``push_operator``):
 each target's incoming edges, sources ascending, are cut into slices of at
-most ``SLICE`` edges; one ``ops.pool.gather_pool`` call (the gather-pool
-kernel on the card) sums every slice's weighted frontier rows, and
-``torch.segment_reduce`` adds each target's slices in order. The transient
+most ``SLICE`` edges (``ops.pool.edge_slices``); one ``ops.pool.gather_pool``
+call (the gather-pool kernel on the card) sums every slice's weighted
+frontier rows, and ``torch.segment_reduce`` adds each target's slices in
+order (``ops.pool.slice_sum``). The transient
 is O(B * N), and every sum runs in a fixed order, so a build repeats bit for
 bit (a library sparse product does not on the card: cuSPARSE's CSR x dense
 product gave other bits from run to run on an H100). Dangling nodes absorb
 their teleport term and drop the rest, as in JAX.
 
-Ranking takes a stable descending sort, so the lower node id comes first
-among equal scores (``jax.lax.top_k``'s order).
+Ranking goes through ``core.ranking.top_k``, so the lower node id comes
+first among equal scores (``jax.lax.top_k``'s order).
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.pool import gather_pool
+from ..core.ranking import top_k
+from ..ops.pool import EdgeSlices, edge_slices, slice_sum
 from .random_walk import DeviceGraph
 
 # Incoming edges summed by one gather-pool row. A masked slot still loads a
@@ -38,18 +40,7 @@ from .random_walk import DeviceGraph
 SLICE = 16
 
 
-class PushOperator(NamedTuple):
-    """P^T cut into slices: slice s sums ``weights[s, c] * r[nbrs[s, c]]``
-    (empty slots hold the sentinel ``num_nodes`` and weight 0), and target t
-    adds its ``slices[t]`` (at least 1) consecutive slices."""
-
-    nbrs: torch.Tensor      # [S, SLICE] int32 source ids
-    weights: torch.Tensor   # [S, SLICE] f32 normalized edge weights
-    slices: torch.Tensor    # [N] int64 slices per target row
-    num_nodes: int
-
-
-def push_operator(graph: DeviceGraph, num_nodes: int | None = None) -> PushOperator:
+def push_operator(graph: DeviceGraph, num_nodes: int | None = None) -> EdgeSlices:
     """P^T of the graph on its device: target t's slices hold the edges s -> t
     with weight ``w[s->t] / sum_u w[s->u]``, sources ascending."""
     n = graph.num_nodes if num_nodes is None else num_nodes
@@ -63,30 +54,11 @@ def push_operator(graph: DeviceGraph, num_nodes: int | None = None) -> PushOpera
         nz = deg_np > 0
         row_sum[nz] = np.add.reduceat(w_np, graph.indptr[:-1].cpu().numpy()[nz])
     wnorm = graph.weights / torch.from_numpy(row_sum).to(dev).clamp_min(1e-12)[src]
-    # Edges are grouped by source, so a stable sort by target keeps each
-    # target's sources ascending.
-    order = torch.sort(graph.indices, stable=True).indices
-    src, wnorm = src[order], wnorm[order]
-    in_deg = torch.bincount(graph.indices, minlength=n)
-    first_edge = torch.cumsum(in_deg, 0) - in_deg
-    slices = (-(-in_deg // SLICE)).clamp_min(1)
-    row = torch.repeat_interleave(torch.arange(n, device=dev), slices)
-    first_slice = torch.cumsum(slices, 0) - slices
-    j = torch.arange(row.shape[0], device=dev) - first_slice[row]      # slice within row
-    slot = torch.arange(SLICE, device=dev)
-    edge = (first_edge[row] + j * SLICE)[:, None] + slot[None, :]
-    valid = slot[None, :] < (in_deg[row] - j * SLICE)[:, None]
-    if src.numel():
-        edge = edge.clamp(max=src.shape[0] - 1)
-        nbrs = torch.where(valid, src[edge], n)
-        weights = torch.where(valid, wnorm[edge], 0.0)
-    else:
-        nbrs = torch.full(edge.shape, n, device=dev)
-        weights = torch.zeros(edge.shape, device=dev)
-    return PushOperator(nbrs.to(torch.int32).contiguous(), weights.contiguous(), slices, n)
+    # Edges are grouped by source, so each target's sources come ascending.
+    return edge_slices(src, graph.indices, wnorm, n, SLICE)
 
 
-def _ppr_columns(push: PushOperator, sources: torch.Tensor, alpha: float,
+def _ppr_columns(push: EdgeSlices, sources: torch.Tensor, alpha: float,
                  num_iterations: int) -> torch.Tensor:
     """[N, B] PPR mass, one column per source."""
     n, b, dev = push.num_nodes, sources.shape[0], push.nbrs.device
@@ -95,26 +67,18 @@ def _ppr_columns(push: PushOperator, sources: torch.Tensor, alpha: float,
     ppr = torch.zeros_like(r)
     for _ in range(num_iterations):
         ppr = ppr + alpha * r
-        partial = gather_pool(r, push.nbrs, push.weights, n)                 # [S, B]
-        r = (1.0 - alpha) * torch.segment_reduce(partial, "sum", lengths=push.slices)
+        r = (1.0 - alpha) * slice_sum(r, push)
     return ppr
 
 
 def ppr_scores(graph: DeviceGraph, sources, num_nodes: int, alpha: float = 0.15,
-               num_iterations: int = 10, push: PushOperator | None = None) -> torch.Tensor:
+               num_iterations: int = 10, push: EdgeSlices | None = None) -> torch.Tensor:
     """[B, num_nodes] approximate PPR mass per source, on the graph's device.
     ``push`` is ``push_operator(graph, num_nodes)``, built here if absent."""
     if push is None:
         push = push_operator(graph, num_nodes)
     sources = torch.as_tensor(sources, device=push.nbrs.device)
     return _ppr_columns(push, sources, alpha, num_iterations).t()
-
-
-def _top(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the k largest per row, the lower index first
-    among equals."""
-    values, idx = torch.sort(scores, dim=1, descending=True, stable=True)
-    return values[:, :k], idx[:, :k]
 
 
 def precompute_top_neighbors(csr, graph: DeviceGraph, nodes, num_neighbors: int = 10,
@@ -133,7 +97,7 @@ def precompute_top_neighbors(csr, graph: DeviceGraph, nodes, num_neighbors: int 
         scores = ppr_scores(graph, torch.from_numpy(padded), n, alpha=alpha,
                             num_iterations=num_iterations, push=push)
         top_scores, top_idx = (t[:chunk.shape[0]].cpu().numpy()
-                               for t in _top(scores, min(num_neighbors, n)))
+                               for t in top_k(scores, min(num_neighbors, n)))
         for row, src in enumerate(chunk):
             s = top_scores[row]
             keep = s > 0
@@ -144,7 +108,7 @@ def precompute_top_neighbors(csr, graph: DeviceGraph, nodes, num_neighbors: int 
     return out
 
 
-def _top_neighbors_chunk(push: PushOperator, sources: torch.Tensor, num_neighbors: int,
+def _top_neighbors_chunk(push: EdgeSlices, sources: torch.Tensor, num_neighbors: int,
                          alpha: float, num_iterations: int,
                          restrict_below: int | None) -> tuple[torch.Tensor, torch.Tensor]:
     num_nodes = push.num_nodes
@@ -152,7 +116,7 @@ def _top_neighbors_chunk(push: PushOperator, sources: torch.Tensor, num_neighbor
     if restrict_below is not None:
         # Rank only movie-node targets (walk.count_nodes="movies").
         scores[:, restrict_below:] = 0.0
-    top, idx = _top(scores, min(num_neighbors, num_nodes))
+    top, idx = top_k(scores, min(num_neighbors, num_nodes))
     empty = top <= 0.0
     nbrs = torch.where(empty, num_nodes, idx).to(torch.int32)
     w = torch.where(empty, 0.0, top)

@@ -2,9 +2,11 @@
 the train step, the epoch loop, evaluation and checkpoint / resume.
 
 Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for every
-pooling rung (dense, hybrid, hub, block, gather; the device mesh is not
-ported yet, ROADMAP queue 1). Contrastive training over shared random and
-rank-window hard negatives on importance-pooled embeddings: per step, the
+pooling rung (dense, hybrid, hub, block, gather) and every aggregator (a
+kind other than ``importance`` builds no pool operators and pools through
+its gather layers, as in JAX); the device mesh is not ported yet (ROADMAP
+queue 1). Contrastive training over shared random and rank-window hard
+negatives on the pooled embeddings: per step, the
 negatives, the batch-restricted pooled forward with dropout, the loss
 (``train.loss``, NCE by default), its gradient and an Adam update.
 
@@ -84,7 +86,7 @@ class Trainer:
             self.csr = data.build_bipartite_graph()
         else:
             self.csr = data.build_item_similarity_graph(
-                threshold=cfg.graph.similarity_threshold)
+                threshold=cfg.graph.similarity_threshold, logger=self.log)
         self.graph = rw.device_graph(self.csr, self.device)
         self.n_iters = rw.search_iters(self.csr)
 

@@ -855,3 +855,33 @@ def test_hamming_plan_raises_beyond_the_kernel_limits():
         t_hamming.plan(32 * 65536, 10, 16, 8)
     with pytest.raises(ValueError, match="T >= 1"):
         t_hamming.plan(4, 10, 0, 8)
+
+
+# ---------------------------------------------------------------------------
+# Edge slices: the message sum of the edge forward and the PPR push
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("width", [4, 16])
+def test_slice_sum_matches_index_add_and_repeats(request, device, width):
+    """``slice_sum`` over ``edge_slices`` (targets in edge order, sliced)
+    equals ``slice_sum_plain`` (``index_add_``) to f32 rounding, gives 0 to
+    a target without edges, and two calls are bitwise equal; on the card it
+    launches the gather-pool kernel once."""
+    dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
+    rng = np.random.default_rng(width)
+    n, e, d = 300, 4000, 64
+    src = torch.as_tensor(rng.integers(0, n, e), device=dev)
+    dst = torch.as_tensor(rng.integers(0, n - 3, e), device=dev)
+    w = torch.as_tensor(rng.random(e).astype(np.float32) * 3, device=dev)
+    x = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32), device=dev).bfloat16()
+    es = t_pool.edge_slices(src, dst, w, n, width)
+    assert es.nbrs.shape[1] == width and int(es.slices.sum()) == es.nbrs.shape[0]
+    t_pool.LAUNCHES = 0
+    got = t_pool.slice_sum(x, es)
+    assert t_pool.LAUNCHES == (1 if device == "cuda" else 0)
+    ref = t_pool.slice_sum_plain(x, src, dst, w, n)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=2e-5, rtol=1e-5)
+    assert (got[-3:] == 0).all()
+    again = t_pool.slice_sum(x, es)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))

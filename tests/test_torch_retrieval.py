@@ -206,6 +206,78 @@ def test_recommend_matches_jax():
     assert not (tidx.numpy() == qi[:, None]).any()
 
 
+def _tied_rows(seed):
+    """Unit rows with entries in {-1/2, 0, 1/2} (norm 1 with four nonzeros),
+    duplicated many times: every product and distance is exact in both
+    frameworks, so equal rows score bitwise equal and the order among them is
+    the top-k's own."""
+    rng = np.random.default_rng(seed)
+    base = np.zeros((12, 16), np.float32)
+    for r in base:
+        r[rng.choice(16, 4, replace=False)] = rng.choice([-0.5, 0.5], 4)
+    return base[rng.integers(0, 12, 90)]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tie_order_matches_jax(seed):
+    """Exact search, ``recommend`` and the LSH rerank on duplicated rows give
+    JAX's indices exactly: the lower index first among equal scores."""
+    emb = _tied_rows(seed)
+    q, qi, k = emb[:7], np.arange(7, dtype=np.int32), 15
+    ji = j_exact.ExactIndex(16)
+    ji.build(jnp.asarray(emb))
+    ti = t_exact.ExactIndex(16, device="cpu")
+    ti.build(emb)
+    jd, jidx = map(np.asarray, ji.search(jnp.asarray(q), k))
+    td, tidx = (t.numpy() for t in ti.search(q, k))
+    assert len(set(jd[0])) < k                            # ties in the top k
+    np.testing.assert_array_equal(tidx, jidx)
+    np.testing.assert_array_equal(td, jd)
+    js, jr = j_metrics.recommend(jnp.asarray(emb), jnp.asarray(qi), k=k)
+    ts, tr = t_metrics.recommend(torch.from_numpy(emb), torch.from_numpy(qi).long(), k=k)
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    js, jidx = j_exact.similarity_topk(jnp.asarray(q), jnp.asarray(emb), k)
+    ts, tidx = t_exact.similarity_topk(torch.from_numpy(q), torch.from_numpy(emb), k)
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    j_index = j_lsh.LSHIndex(16, 64, 4, seed=0, use_pallas=False, hamming_impl="popcount",
+                             rerank=40)
+    j_index.build(jnp.asarray(emb))
+    jd, jidx = map(np.asarray, j_index.search(jnp.asarray(q), k))
+    t_index = t_lsh.LSHIndex(16, 64, 4, rerank=40, planes=np.asarray(j_index.planes),
+                             device="cpu")
+    t_index.build(emb)
+    t_index._sigs = torch.from_numpy(np.array(j_index._sigs).view(np.int32))
+    td, tidx = (t.numpy() for t in t_index.search(q, k))
+    np.testing.assert_array_equal(tidx, jidx)
+    np.testing.assert_array_equal(td, jd)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int64", "float64"])
+@pytest.mark.parametrize("largest", [True, False])
+def test_top_k_matches_lax_top_k(dtype, largest):
+    """``core.ranking.top_k`` against ``lax.top_k`` (of the negation for the
+    smallest) on rows dense with ties, -0.0 beside +0.0 and NaNs of both
+    signs: the same indices and values, every k."""
+    import jax
+
+    from movie_recommendation_engine_tpu_torch.core.ranking import top_k
+
+    rng = np.random.default_rng(7)
+    x = rng.integers(-3, 4, (6, 41)).astype(np.float64) / 2
+    if dtype != "int64":
+        x[rng.random(x.shape) < 0.1] = -0.0
+        x[0, 3], x[1, 5], x[2, 7] = np.nan, -np.nan, np.nan
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    jx = jnp.asarray(tx.float().numpy() if dtype == "bfloat16" else tx.numpy())
+    for k in (1, 7, 41):
+        tv, ti = top_k(tx, k, largest=largest)
+        jv, ji = jax.lax.top_k(jx if largest else -jx, k)
+        np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+        np.testing.assert_array_equal(tv.float().numpy(),
+                                      np.asarray(jv if largest else -jv, np.float32))
+
+
 @pytest.mark.parametrize("method", ["exact", "lsh", "lsh_rerank", "ivf"])
 def test_batching_server_concurrent_requests(method):
     """More client threads than cores, a short switch interval, by-item and
@@ -288,9 +360,28 @@ def test_cli_benchmark_and_all_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("mode", ["tune", "demo", "download"])
-def test_cli_unported_modes_exit(mode):
+def test_cli_unported_modes_exit(mode, tmp_path, monkeypatch, capsys):
+    """The modes the port once refused now run on the CPU and exit 0:
+    ``tune`` on a 1 x 1 grid, ``demo`` on piped commands, ``download`` on a
+    dataset already in place."""
+    import io
+
     from movie_recommendation_engine_tpu_torch.cli.main import main
 
-    with pytest.raises(SystemExit, match="not ported: tune, demo, download") as e:
-        main([mode, "--device", "cpu"])
-    assert e.value.code != 0
+    data_dir = tmp_path / "ml"
+    data_dir.mkdir()
+    for name in ("movies.csv", "ratings.csv", "tags.csv", "links.csv"):
+        (data_dir / name).write_text("")
+    sets = ["--set=data.source=synthetic", "--set=data.synthetic_num_movies=120",
+            "--set=data.synthetic_num_users=200", "--set=data.synthetic_num_ratings=3000",
+            "--set=features.feature_dim=16", "--set=model.hidden_dim=32",
+            "--set=model.embed_dim=16", "--set=walk.num_walks=10", "--set=train.epochs=1",
+            "--set=train.batch_size=32", "--set=train.max_pairs_per_epoch=64",
+            f"--set=paths.output_dir={tmp_path}", f"--set=paths.checkpoint_dir={tmp_path}",
+            f"--set=data.data_dir={data_dir}"]
+    args = {"tune": ["--lrs", "1e-3", "--hidden-dims", "32"], "demo": [], "download": []}
+    monkeypatch.setattr(sys, "stdin", io.StringIO("popular\nquit\n"))
+    assert main([mode, "--device", "cpu", *args[mode], *sets]) == 0
+    out = capsys.readouterr().out
+    assert {"tune": '"event": "tune_done"', "demo": "ratings)",
+            "download": "dataset already present"}[mode] in out

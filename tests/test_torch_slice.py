@@ -173,8 +173,10 @@ def test_cli_modes_on_cpu(tmp_path, capsys):
     assert (tmp_path / "movie_embeddings.npz").exists()
     assert main(["recommend", "--device", "cpu", "--k", "3", *sets]) == 0
     assert "Top-3 recommendations (lsh)" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="not ported"):
-        main(["tune", "--device", "cpu"])
+    assert main(["tune", "--device", "cpu", "--lrs", "1e-3", "--hidden-dims", "32",
+                 "--set=train.epochs=1", *sets]) == 0
+    assert (tmp_path / "tuning_results.csv").exists()
+    assert (tmp_path / "best_tuned_model.npz").exists()
 
 
 def test_entry_points_default_to_cuda():
