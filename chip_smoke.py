@@ -124,6 +124,23 @@ Phases, one JSON line each:
    --profile`` (the trace names the gather-pool kernel) and a reference
    ``.pt`` checkpoint, on the card.
 
+15. mesh   — multi-device execution on the one card (``mesh_phase``):
+   NCCL in a world of one (a 2-epoch ``fit`` at ``mesh_shape=(1, 1)``
+   with ``shard_tables`` on the gather config, f32, within 1e-6 of the fit
+   without a mesh, bitwise equality reported); then two gloo ranks spawned
+   on cuda:0 (collectives staged through the host): the gather config at
+   (1, 2) with tables and CSR row-sharded and at (2, 1), 2 steps with 6
+   hard negatives, walk tables bitwise equal to the single-device trainer's
+   and the losses and first gradients within 1e-5 (a gradient counted on
+   both ranks fails; params reported), both gather-pool kernels launched
+   on each rank and held to their plain versions on the rank's rows; ``train_hub``'s 59,393-row
+   popularity tables at (1, 2), which must take ``hubf`` with half of each
+   ``a_head`` a rank, one step within 1e-5 of the single-device step, peak
+   memory per rank; sharded exact and IVF (every list probed) search over
+   that step's embeddings at Q = 256, k = 10, equal to exact search except
+   at near-ties (1e-6). Per rank: step wall and CUDA-event ms, the
+   collectives' calls, bytes and host ms a step, the rung.
+
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
 exit code and no result line. It exits non-zero at once without a card.
@@ -2424,6 +2441,361 @@ def tools_phase(dev, d: str) -> None:
     emit("tools", **out)
 
 
+# ---------------------------------------------------------------------------
+# 15. mesh: multi-device execution. One card, so NCCL gets a world of one;
+# the sharded semantics run on two gloo ranks that share cuda:0 (spawned
+# here), their collectives staged through the host.
+# ---------------------------------------------------------------------------
+
+MESH_GATHER = {"data.source": "synthetic", "model.pool_impl": "gather",
+               "model.gather_impl": "pallas", "train.compute_dtype": "float32",
+               "train.epochs": 2}
+MESH_HARD = 6
+
+
+def mesh_cfg(overrides: dict, shape=None):
+    from movie_recommendation_engine_tpu_torch import default_config
+
+    cfg = default_config().override({"mesh.shard_tables": True, **overrides})
+    cfg.mesh.mesh_shape = shape
+    return cfg
+
+
+def flat_numpy(tree_) -> dict:
+    from movie_recommendation_engine_tpu_torch.core import tree
+
+    return {k: v.detach().cpu().numpy() for k, v in tree.flatten(tree_).items()}
+
+
+def mesh_steps(tr, q, p, steps: int) -> dict:
+    """The protocol both the single-device trainer and every rank run, from
+    the same seed: refresh the tables (unless given), then the first step's
+    draws (``MESH_HARD`` hard negatives), loss and gradients; the generator
+    put back, then ``steps`` Adam steps (counts, collectives and times
+    taken around them)."""
+    from movie_recommendation_engine_tpu_torch.parallel import collectives as coll
+
+    if tr.nbr_tables is None:
+        tr.refresh_neighborhoods()
+    state = tr.generator.get_state()
+    d0 = tr.draw_step(q[0], MESH_HARD)
+    loss0, grads = tr.loss_and_grads(q[0], p[0], d0, 1.0)
+    tr.generator.set_state(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    coll.reset_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = tr.train_steps(q[:steps], p[:steps], 1e-3, 1.0, MESH_HARD)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"loss0": float(loss0), "grads": flat_numpy(grads),
+            "losses": losses.cpu().numpy(), "params": flat_numpy(tr.params),
+            "launches": read_launches(),
+            "step_wall_ms": wall * 1e3 / steps,
+            "step_cuda_event_ms": start.elapsed_time(end) / steps,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "collectives_a_step": {op: {"calls": s[0] / steps, "bytes": s[1] / steps,
+                                        "host_ms": s[2] * 1e3 / steps}
+                                   for op, s in coll.STATS.items()},
+            "rung": rung_of(tr.pool_mats)}
+
+
+def held_to(got: dict, ref: dict, tol: float, what: str) -> dict:
+    """Losses within ``tol`` relative and the first step's gradients within
+    ``tol`` of the largest; returns the largest differences, the params'
+    too. The params are reported, not gated: Adam divides each gradient
+    element by its own size, so an element within rounding of zero, summed
+    across ranks in another order, steps by up to lr either way."""
+    loss_err = abs(got["loss0"] - ref["loss0"]) / abs(ref["loss0"])
+    check(loss_err <= tol, f"{what}: first loss {got['loss0']} vs {ref['loss0']}")
+    out = {"loss_rel_err": loss_err}
+    if "losses" in ref and "losses" in got:
+        err = float(np.max(np.abs(got["losses"] - ref["losses"]) / np.abs(ref["losses"])))
+        check(err <= tol, f"{what}: losses {got['losses']} vs {ref['losses']}")
+        out["losses_rel_err"] = err
+    for part in ("grads", "params"):
+        if part not in ref or part not in got:
+            continue
+        scale = max(float(np.abs(v).max()) for v in ref[part].values())
+        err = max(float(np.abs(got[part][k] - v).max()) for k, v in ref[part].items())
+        check(part == "params" or err <= tol * scale,
+              f"{what}: {part} differ by {err} (largest {scale})")
+        out[f"{part}_max_abs_err"], out[f"{part}_largest"] = err, scale
+    return out
+
+
+def mesh_kernel_checks(tr, rank: int) -> dict:
+    """Both gather-pool kernels on the rank's own inputs: its rows of the
+    layer-0 walk table (global ids) against a random table of every row,
+    held to their plain versions (``check_pool_routes``, ``check_segment``,
+    ``check_bwd``)."""
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    gen = torch.Generator(device=tr.device).manual_seed(100 + rank)
+    limit = min(tr.valid_limit, tr.table_rows)
+    table, nbrs, w, g = bwd_inputs(gen, tr, slice(None), limit, torch.float32)
+    return {"rows": list(nbrs.shape), "table_rows": table.shape[0],
+            "gather_pool_max_abs_err": check_pool_routes(pool, table, nbrs, w, limit,
+                                                         f"rank {rank}"),
+            "segment_max_abs_err": check_segment(pool, table, nbrs, w, limit, g,
+                                                 f"rank {rank}"),
+            "bwd_vs_plain": check_bwd(pool, table, nbrs, w, limit, g, f"rank {rank}",
+                                      "segment")}
+
+
+def mesh_rank(rank: int, world: int, d: str) -> None:
+    """One of the two gloo ranks on cuda:0: the 4k gather config at (1, 2)
+    (tables and CSR row-sharded) and (2, 1), then the 59k hub step at
+    (1, 2) and sharded retrieval over its embeddings. Every result is held
+    to the single-device one here; the rank writes what it read."""
+    import pickle
+
+    from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
+    from movie_recommendation_engine_tpu_torch.parallel import collectives as coll
+    from movie_recommendation_engine_tpu_torch.parallel import mesh as mesh_mod
+    from movie_recommendation_engine_tpu_torch.parallel.sharding import sharded_embed_fn
+    from movie_recommendation_engine_tpu_torch.retrieval.exact import ExactIndex
+    from movie_recommendation_engine_tpu_torch.retrieval.sharded import (ShardedExactIndex,
+                                                                         ShardedIVFIndex)
+    from movie_recommendation_engine_tpu_torch.sampling.sharded_walk import ShardedDeviceGraph
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh_mod.distributed_init(backend="gloo", init_method=f"file://{d}/pg", world_size=world,
+                              rank=rank, init_timeout_s=300)
+    dev = mesh_mod.rank_device(torch.device("cuda"))
+    with open(f"{d}/ref.pkl", "rb") as f:
+        ref = pickle.load(f)
+    out = {"device": str(dev)}
+    q = torch.as_tensor(ref["q"], device=dev)
+    p = torch.as_tensor(ref["p"], device=dev)
+    for shape in ((1, 2), (2, 1)):
+        name = f"{shape[0]}x{shape[1]}"
+        tr = Trainer(mesh_cfg(MESH_GATHER, shape), ref["data"], device=dev)
+        check(isinstance(tr.graph, ShardedDeviceGraph) == (shape[1] > 1),
+              f"rank {rank} {name}: the CSR is not row-sharded")
+        tr.refresh_neighborhoods()
+        rows = slice(None) if tr.shard is None else slice(tr.shard.start, tr.shard.stop)
+        same = all(np.array_equal(nb.cpu().numpy(), r_nb[rows])
+                   and np.array_equal(w.cpu().numpy(), r_w[rows])
+                   for (nb, w), (r_nb, r_w) in zip(tr.nbr_tables, ref["tables"]))
+        check(same, f"rank {rank} {name}: walk tables differ from the single-device trainer's")
+        got = mesh_steps(tr, q, p, 2)
+        launches = got["launches"]
+        check(launches["gather_pool"] > 0 and launches["gather_pool_bwd_segment"] > 0,
+              f"rank {rank} {name}: the path did not launch both gather-pool kernels: "
+              f"{launches}")
+        out[name] = {"held_to_single_device": held_to(got, ref["steps"], 1e-5,
+                                                      f"rank {rank} {name}"),
+                     "walk_tables_bitwise_equal": same,
+                     "rows_held": tr.x_table.shape[0], "table_rows": tr.table_rows,
+                     "kernels": mesh_kernel_checks(tr, rank),
+                     **{k: got[k] for k in ("launches", "step_wall_ms", "step_cuda_event_ms",
+                                            "collectives_a_step", "rung", "peak_mib")}}
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # The at-scale rung: 59k popularity tables, pool_impl=auto, (1, 2).
+    with open(f"{d}/hub_data.pkl", "rb") as f:
+        hub_data = pickle.load(f)
+    cfg = mesh_cfg({"data.source": "synthetic", "model.gather_impl": "pallas",
+                    "train.compute_dtype": "float32", **HUB_CORPUS}, (1, 2))
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, hub_data, device=dev)
+    n = hub_data.num_movies
+    pad = tr.table_rows - n
+    tables = [(np.concatenate([nb, np.full((pad, nb.shape[1]), n, np.int32)]),
+               np.concatenate([w, np.zeros((pad, w.shape[1]), np.float32)]))
+              for nb, w in popularity_tables(2, n)]
+    tr.set_neighborhood_tables(tables)
+    check(len(tr.pool_mats) == 2 and all(isinstance(pm, HubPool) for pm in tr.pool_mats),
+          f"rank {rank} 59k: pool_impl=auto built {rung_of(tr.pool_mats)}, expected hubf")
+    half = [pm.a_head.shape[0] for pm in tr.pool_mats]
+    check(all(h * 2 == tr.table_rows for h in half),
+          f"rank {rank} 59k: a_head rows {half} are not half of {tr.table_rows}")
+    hq = torch.as_tensor(ref["hub_q"], device=dev)
+    hp = torch.as_tensor(ref["hub_p"], device=dev)
+    got = mesh_steps(tr, hq, hp, 1)
+    out["hub_1x2"] = {"held_to_single_device": held_to(got, ref["hub"], 1e-5,
+                                                       f"rank {rank} 59k"),
+                      "a_head_rows": half, "table_rows": tr.table_rows,
+                      "a_head_bytes": sum(pm.a_head.numel() * pm.a_head.element_size()
+                                          for pm in tr.pool_mats),
+                      "peak_mib_build_and_step": torch.cuda.max_memory_allocated() / 2**20,
+                      **{k: got[k] for k in ("launches", "step_wall_ms", "step_cuda_event_ms",
+                                             "collectives_a_step", "rung", "peak_mib")}}
+
+    # Sharded retrieval over the step's embeddings: the rank's rows of the
+    # embedding pass go to the sharded exact index without a gather.
+    rows = sharded_embed_fn(tr.mesh, tr.step_config(0.0), tr.shard)(
+        tr.params, tr.x_table, [t[0] for t in tr.nbr_tables], [t[1] for t in tr.nbr_tables],
+        tr.pool_mats)
+    full = coll.all_gather_rows(rows, tr.shard.group)[:n].contiguous()
+    queries = full[torch.as_tensor(np.random.default_rng(0).choice(n, 256, replace=False),
+                                   device=dev)]
+    exact = ExactIndex(full.shape[1], device=dev)
+    exact.build(full)
+    e_d, e_i = exact.search(queries, 10)
+    sx = ShardedExactIndex(full.shape[1], mesh=tr.mesh, device=dev)
+    sx.build_shard(rows, n)
+    s_d, s_i = sx.search(queries, 10)
+    iv = ShardedIVFIndex(full.shape[1], mesh=tr.mesh, num_partitions=100, nprobe=100,
+                         device=dev)
+    iv.build(full)
+    i_d, i_i = iv.search(queries, 10)
+    def wall_ms(index) -> float:
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            index.search(queries, 10)[1].cpu()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+    out["retrieval"] = {"queries": 256, "k": 10, "rows_held": rows.shape[0],
+                        "sharded_exact_near_ties": same_ids(s_d, s_i, e_d, e_i, tol=1e-6),
+                        "sharded_ivf_full_probe_near_ties": same_ids(i_d, i_i, e_d, e_i,
+                                                                     tol=1e-6),
+                        "ivf_rows_held": iv._emb.shape[0],
+                        "search_wall_ms_median": {"sharded_exact": wall_ms(sx),
+                                                  "sharded_ivf": wall_ms(iv),
+                                                  "exact_one_rank": wall_ms(exact)}}
+    with open(f"{d}/rank{rank}.json", "w") as f:
+        json.dump(out, f, default=float)
+    torch.distributed.destroy_process_group()
+
+
+def mesh_nccl_world_of_one(dev, d: str) -> dict:
+    """``Engine.fit`` (2 epochs, f32) on the gather config twice from the
+    same seed: in an NCCL group of one rank at ``mesh_shape=(1, 1)`` with
+    ``shard_tables``, and without a mesh. Losses and params within 1e-6."""
+    from movie_recommendation_engine_tpu_torch import api
+    from movie_recommendation_engine_tpu_torch.parallel import mesh as mesh_mod
+
+    check(mesh_mod.distributed_init(backend="nccl", init_method=f"file://{d}/pg_nccl",
+                                    world_size=1, rank=0, init_timeout_s=120),
+          "NCCL world of one did not initialize")
+    fits = {}
+    for name, shape in (("mesh_1x1", (1, 1)), ("single", None)):
+        eng = api.Engine(mesh_cfg({**MESH_GATHER, "paths.checkpoint_dir": f"{d}/{name}"},
+                                  shape), device=dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        out = eng.fit()
+        torch.cuda.synchronize()
+        fits[name] = {"fit_s": time.perf_counter() - t0, "launches": read_launches(),
+                      "losses": [h["loss"] for h in out["history"]],
+                      "params": flat_numpy(eng.trainer.params),
+                      "mesh": eng.trainer.mesh is not None,
+                      "backend": torch.distributed.get_backend()}
+        del eng
+    torch.distributed.destroy_process_group()
+    a, b = fits["mesh_1x1"], fits["single"]
+    check(a["mesh"] and not b["mesh"], "the NCCL fit did not run on a mesh")
+    loss_err = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    param_err = max(float(np.abs(a["params"][k] - v).max()) for k, v in b["params"].items())
+    check(loss_err <= 1e-6 and param_err <= 1e-6,
+          f"NCCL (1, 1) fit: losses {a['losses']} vs {b['losses']}, params differ by {param_err}")
+    check(a["launches"]["gather_pool"] > 0 and a["launches"]["gather_pool_bwd_segment"] > 0,
+          f"NCCL (1, 1) fit launched {a['launches']}")
+    return {"backend": a["backend"], "losses": a["losses"], "single_losses": b["losses"],
+            "loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+            "bitwise_equal": loss_err == 0.0 and param_err == 0.0,
+            "fit_s": {k: v["fit_s"] for k, v in fits.items()},
+            "launches": a["launches"]}
+
+
+def mesh_phase(dev, hub_data) -> dict:
+    """Multi-device execution on one card:
+
+    1. NCCL in a world of one (``mesh_nccl_world_of_one``);
+    2. two gloo ranks sharing cuda:0, spawned here (``mesh_rank``): the 4k
+       gather config at (1, 2) with ``shard_tables`` and ``shard_graph`` and
+       at (2, 1), two steps with 6 hard negatives each, walk tables bitwise
+       equal to the single-device trainer's, the first step's loss and
+       gradients and both steps' losses within 1e-5 of it (f32; the params
+       reported),
+       both gather-pool kernels launched on each rank and held to their
+       plain versions on the rank's inputs;
+    3. the same two ranks at (1, 2) on ``train_hub``'s 59,393-row corpus and
+       popularity tables with ``pool_impl=auto``: ``hubf`` with each rank
+       holding half of every ``a_head``, one step within 1e-5 of the
+       single-device hub step, peak device memory per rank beside it;
+    4. sharded retrieval over that step's embeddings (Q = 256, k = 10):
+       ``sharded_exact`` built from each rank's rows of the embedding pass
+       and ``sharded_ivf`` with every list probed, both equal to exact
+       search except where two distances lie within 1e-6.
+
+    Gloo numbers are two ranks on one card, their collectives staged
+    through the host: no multi-GPU rate is read from them."""
+    import pickle
+
+    from movie_recommendation_engine_tpu_torch.graph import dataset
+    from movie_recommendation_engine_tpu_torch.parallel import mesh as mesh_mod
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        nccl = mesh_nccl_world_of_one(dev, d)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        cfg = mesh_cfg(MESH_GATHER)
+        data = dataset.load(cfg)
+        tr = Trainer(cfg, data, device=dev)
+        pairs = tr._epoch_pairs(np.random.default_rng(0))[:2]
+        q = torch.as_tensor(pairs[:, :, 0], dtype=torch.int32, device=dev)
+        p = torch.as_tensor(pairs[:, :, 1], dtype=torch.int32, device=dev)
+        steps = mesh_steps(tr, q, p, 2)
+        ref = {"data": data, "q": q.cpu().numpy(), "p": p.cpu().numpy(), "steps": steps,
+               "tables": [(nb.cpu().numpy(), w.cpu().numpy()) for nb, w in tr.nbr_tables]}
+        del tr
+        hcfg = mesh_cfg({"data.source": "synthetic", "model.gather_impl": "pallas",
+                         "train.compute_dtype": "float32", **HUB_CORPUS})
+        htr = Trainer(hcfg, hub_data, device=dev)
+        htr.set_neighborhood_tables(popularity_tables(2, htr.table_rows))
+        hpairs = htr._epoch_pairs(np.random.default_rng(0))[:1]
+        hq = torch.as_tensor(hpairs[:, :, 0], dtype=torch.int32, device=dev)
+        hp = torch.as_tensor(hpairs[:, :, 1], dtype=torch.int32, device=dev)
+        hub = mesh_steps(htr, hq, hp, 1)
+        check(hub["rung"] == "hubf", f"single-device 59k step took {hub['rung']}")
+        ref.update(hub=hub, hub_q=hq.cpu().numpy(), hub_p=hp.cpu().numpy())
+        del htr
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(f"{d}/ref.pkl", "wb") as f:
+            pickle.dump(ref, f)
+        with open(f"{d}/hub_data.pkl", "wb") as f:
+            pickle.dump(hub_data, f)
+        t0 = time.perf_counter()
+        mesh_mod.run_local(mesh_rank, 2, d, timeout=600)
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.load(open(f"{d}/rank{r}.json")) for r in range(2)]
+
+    def single(s):
+        return {k: s[k] for k in ("step_wall_ms", "step_cuda_event_ms", "peak_mib", "rung",
+                                  "launches")}
+    emit("mesh", label="gloo: two ranks on one card, collectives staged through the host",
+         nccl_world_of_one=nccl, single_device={"gather_4k": single(steps),
+                                                "hub_59k": single(hub)},
+         ranks=ranks, ranks_s=ranks_s, phase_s=time.perf_counter() - t_phase)
+    per_rank = {"launches_mesh_nccl": nccl["launches"]["gather_pool"]}
+    bwd = {"launches_mesh_nccl": nccl["launches"]["gather_pool_bwd_segment"]}
+    for r, out in enumerate(ranks):
+        for name in ("1x2", "2x1", "hub_1x2"):
+            per_rank[f"launches_mesh_{name}_rank{r}"] = out[name]["launches"]["gather_pool"]
+            bwd[f"launches_mesh_{name}_rank{r}"] = out[name]["launches"]["gather_pool_bwd"]
+        per_rank[f"max_abs_err_mesh_rank{r}"] = out["1x2"]["kernels"]["gather_pool_max_abs_err"]
+        bwd[f"max_abs_err_mesh_rank{r}"] = out["1x2"]["kernels"]["bwd_vs_plain"][
+            "d_table_max_abs_err"]
+    return {"gather_pool": per_rank, "gather_pool_bwd": bwd}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA card",
@@ -2466,6 +2838,7 @@ def main() -> int:
                       library_ms_ppr_push_59k=at_scale["push"]["library_cusparse"]["ms"])
     ham["launches"] = launches["hamming_distance"]
     ham.update(retrieval_phase(dev, hub_emb, hub_eng.data))
+    hub_data = hub_eng.data
     del hub_eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -2479,6 +2852,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         extras.append(aggregators_phase(dev))
         extras.append(tools_phase(dev, os.path.join(d, "tools")) or {})
+        gc.collect()
+        torch.cuda.empty_cache()
+        extras.append(mesh_phase(dev, hub_data))
     for extra in extras:
         pool_entry.update(extra.get("gather_pool", {}))
         bwd.update(extra.get("gather_pool_bwd", {}))

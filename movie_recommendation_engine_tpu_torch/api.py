@@ -26,14 +26,19 @@ from .core.logging import MetricsLogger
 
 class Engine:
     """A loaded dataset + model on ``device`` (``cuda`` unless ``"cpu"`` is
-    asked for; raises when CUDA is asked for and absent)."""
+    asked for; raises when CUDA is asked for and absent). Under ``torchrun``
+    it joins the process group first, so ``cfg.mesh.mesh_shape`` spans the
+    ranks."""
 
     def __init__(self, cfg: Config | None = None,
                  logger: MetricsLogger | None = None, device=None):
         from .graph import dataset
+        from .parallel.mesh import distributed_init
         from .train.trainer import Trainer
 
         self.device = resolve_device(device)
+        # Under torchrun: join the process group (a no-op otherwise).
+        distributed_init(backend="gloo" if self.device.type == "cpu" else "nccl")
         self.cfg = cfg or default_config()
         self.log = logger or MetricsLogger(pretty=False)
         self.data = dataset.load(self.cfg, self.log)

@@ -13,6 +13,13 @@ JAX-format checkpoint (without ``.npz``) or a reference ``.pt``.
 ``--device`` (default ``cuda``) replaces the JAX CLI's ``--platform``; a run
 asked to use CUDA on a machine without it fails.
 
+Under ``torchrun`` every entry first joins the process group (NCCL on
+``cuda``, gloo with ``--device cpu``; log event ``distributed_init``), so a
+multi-device run is
+
+    torchrun --nproc-per-node=N -m movie_recommendation_engine_tpu_torch train \
+        --set mesh.mesh_shape=[d,m] --set mesh.shard_tables=true
+
 Config overrides use dotted keys into the typed Config, e.g.
     --set search.search_method=lsh --set data.data_dir=/data/ml-25m
 """
@@ -259,6 +266,23 @@ def cmd_serve(cfg: Config, args) -> int:
     return 0
 
 
+def _join_process_group(device: str) -> None:
+    """Join ``torchrun``'s process group (a no-op without it, and after the
+    first call)."""
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.mesh import distributed_init
+
+    if dist.is_initialized() or not distributed_init(
+            backend="gloo" if device == "cpu" else "nccl"):
+        return
+    local = torch.cuda.device_count() if device == "cuda" else 1
+    MetricsLogger().log("distributed_init", process_index=dist.get_rank(),
+                        process_count=dist.get_world_size(), local_devices=local,
+                        global_devices=dist.get_world_size(), backend=dist.get_backend())
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(
         prog="movie_recommendation_engine_tpu_torch",
@@ -289,6 +313,7 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="device to run on (default cuda; fails without it)")
     args = ap.parse_args(argv)
+    _join_process_group(args.device)
     cfg = _load_config(args)
     if args.mode == "all":
         return (cmd_train(cfg, args) or cmd_evaluate(cfg, args)

@@ -37,11 +37,16 @@ def shared_pool_max_margin_loss(query: torch.Tensor, positive: torch.Tensor,
 
 
 def batch_hard_triplet_loss(query: torch.Tensor, positive: torch.Tensor,
-                            margin: float = 0.1) -> torch.Tensor:
+                            margin: float = 0.1, batch_positives: torch.Tensor | None = None,
+                            offset: int = 0) -> torch.Tensor:
     """Hardest in-batch negative from the masked query-positive similarity
-    matrix."""
-    sim = query @ positive.T
-    eye = torch.eye(query.shape[0], dtype=sim.dtype, device=sim.device)
+    matrix. ``batch_positives`` is the whole batch's positives where
+    ``query`` / ``positive`` are rows ``offset..`` of it (a rank's share)."""
+    cand = positive if batch_positives is None else batch_positives
+    sim = query @ cand.T
+    eye = torch.eye(query.shape[0], cand.shape[0], dtype=sim.dtype, device=sim.device)
+    if offset:
+        eye = torch.roll(eye, offset, dims=1)
     hardest = (sim * (1.0 - eye) - eye * 1e9).amax(dim=1)
     pos_sim = (query * positive).sum(dim=1)
     return torch.relu(margin + hardest - pos_sim).mean()

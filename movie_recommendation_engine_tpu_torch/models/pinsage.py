@@ -19,6 +19,16 @@ default), pooling accumulated in f32, L2 norms in f32, params f32.
 
 Neighbor id ``>= valid_limit`` marks an empty slot; pooling masks it and
 renormalizes over the valid set. A row with no valid neighbors pools to zero.
+
+Under a mesh (``shard``, a ``parallel.mesh.RowShard``) the tables are
+row-sharded over the model axis: ``x_table``, the walk tables and the pool
+operators hold the rank's rows. A full-graph layer computes the rank's
+[C, H] rows, all-gathers ``h`` over the model axis and pools its own rows
+of the walk table (global ids) against it; batch norm there sums its
+statistics over the axis. The batch layer reads the gathered ``h``, and the
+operator or walk-table rows of its nodes through
+``parallel.collectives.sharded_rows``; ``batch_stats`` sums its batch
+norm over the ranks that share the batch.
 """
 
 from __future__ import annotations
@@ -30,6 +40,8 @@ import torch
 from ..ops.block_sparse import BlockPool, block_pool_matmul
 from ..ops.hub_pool import HubPool, hub_pool_matmul, hub_pool_matmul_batch, take_rows
 from ..ops.pool import SegmentLayout, edge_slices, gather_pool, slice_sum
+from ..parallel.collectives import all_gather_rows, all_reduce_sum, sharded_rows
+from ..parallel.mesh import BatchStats, RowShard
 from . import aggregators
 
 Params = dict[str, Any]
@@ -184,29 +196,50 @@ def _dense_pool(pm: torch.Tensor, h: torch.Tensor, dtype) -> torch.Tensor:
 
 
 def _pool_apply(pm, h: torch.Tensor, dtype, gather_impl: str = "xla",
-                bwd_layout: SegmentLayout | None = None) -> torch.Tensor:
+                bwd_layout: SegmentLayout | None = None,
+                shard: RowShard | None = None) -> torch.Tensor:
     """Full-graph pooling through one layer's operator: a dense [N, N]
     matrix, an ``ops.hub_pool.HubPool`` (its residual through
     ``gather_impl``; ``bwd_layout`` is its residual table's layout for the
-    kernel's backward) or an ``ops.block_sparse.BlockPool``."""
+    kernel's backward) or an ``ops.block_sparse.BlockPool``. Under
+    ``shard``, ``h`` is the whole gathered table and the result the rank's
+    rows."""
     if isinstance(pm, HubPool):
         return hub_pool_matmul(pm, h, dtype=dtype, gather_impl=gather_impl,
                                bwd_layout=bwd_layout)
     if isinstance(pm, BlockPool):
-        return block_pool_matmul(pm, h, dtype=dtype)
+        out = block_pool_matmul(pm, h, dtype=dtype, group=shard and shard.group)
+        return out if shard is None else out[shard.start:shard.stop]
     return _dense_pool(pm, h, dtype)
 
 
+def _batch_norm(h: torch.Tensor, bn: Params, stats: BatchStats | None) -> torch.Tensor:
+    """Normalize over the rows (biased variance, eps 1e-5), then scale and
+    shift. ``stats`` sums the statistics over its group's ``rows`` rows."""
+    if stats is None:
+        if h.shape[0] <= 1:
+            return h
+        mean = h.mean(dim=0, keepdim=True)
+        var = h.var(dim=0, unbiased=False, keepdim=True)
+    else:
+        if stats.rows <= 1:
+            return h
+        hf = h.float()
+        mean = all_reduce_sum(hf.sum(dim=0, keepdim=True), stats.group) / stats.rows
+        var = all_reduce_sum(((hf - mean) ** 2).sum(dim=0, keepdim=True),
+                             stats.group) / stats.rows
+        mean, var = mean.to(h.dtype), var.to(h.dtype)
+    h = (h - mean) * torch.rsqrt(var + 1e-5)
+    return h * bn["scale"] + bn["bias"]
+
+
 def _conv_block(conv: Params, h_self_in: torch.Tensor, h_neigh: torch.Tensor,
-                dtype) -> torch.Tensor:
+                dtype, stats: BatchStats | None = None) -> torch.Tensor:
     """concat(lin_self(h), pooled) -> lin_update [-> BN] -> ReLU -> L2 norm."""
     h_self = linear(conv["self"], h_self_in, dtype)
     h = linear(conv["update"], torch.cat([h_self, h_neigh], dim=-1), dtype)
-    if "bn" in conv and h.shape[0] > 1:
-        mean = h.mean(dim=0, keepdim=True)
-        var = h.var(dim=0, unbiased=False, keepdim=True)
-        h = (h - mean) * torch.rsqrt(var + 1e-5)
-        h = h * conv["bn"]["scale"] + conv["bn"]["bias"]
+    if "bn" in conv:
+        h = _batch_norm(h, conv["bn"], stats)
     return l2_normalize(torch.relu(h))
 
 
@@ -226,8 +259,39 @@ def _dropout(h: torch.Tensor, rate: float, generator: torch.Generator | None = N
     return torch.where(keep, h / scale, 0.0)
 
 
-def _hidden_dropout(h: torch.Tensor, i: int, rate: float, generator, keep) -> torch.Tensor:
-    return _dropout(h, rate, generator, None if keep is None else keep[i])
+def _hidden_dropout(h: torch.Tensor, i: int, rate: float, generator, keep,
+                    shard: RowShard | None = None) -> torch.Tensor:
+    """Dropout after hidden conv ``i``; under ``shard`` the whole table's
+    mask is drawn (or given), as on one device, and the rank's rows kept."""
+    k = None if keep is None else keep[i]
+    if shard is not None and rate > 0:
+        if k is None and generator is not None:
+            k = torch.rand((shard.total, h.shape[1]), generator=generator,
+                           device=h.device) < 1.0 - rate
+        if k is not None:
+            k = k[shard.start:shard.stop]
+    return _dropout(h, rate, generator, k)
+
+
+def _gathered(h: torch.Tensor, shard: RowShard | None) -> torch.Tensor:
+    """The whole table of ``h`` (the rank's rows all-gathered under a
+    shard)."""
+    return h if shard is None else all_gather_rows(h, shard.group)
+
+
+def _full_graph_layer(i: int, conv, h, layer_neighbors, layer_weights, pool_mats,
+                      valid_limit, dtype, aggregator, gather_impl, layout, shard):
+    """Layer ``i`` for every row (the rank's rows under ``shard``)."""
+    table = _gathered(h, shard)
+    if i < len(pool_mats):
+        h_neigh = _pool_apply(pool_mats[i], table, dtype, gather_impl, layout, shard)
+    else:
+        h_neigh = _gather_layer(
+            conv, table, h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
+            layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
+            aggregator, gather_impl, layout)
+    stats = None if shard is None else BatchStats(shard.group, shard.total)
+    return _conv_block(conv, h, h_neigh, dtype, stats)
 
 
 def _gather_layer(conv, h, h_self, nbrs, w, valid_limit, dtype, aggregator, gather_impl,
@@ -243,19 +307,16 @@ def pooled_forward_dense(params: Params, x_table: torch.Tensor,
                          pool_mats: list[torch.Tensor], dtype=torch.bfloat16,
                          dropout_rate: float = 0.0,
                          generator: torch.Generator | None = None,
-                         dropout_keep: list[torch.Tensor] | None = None) -> torch.Tensor:
+                         dropout_keep: list[torch.Tensor] | None = None,
+                         shard: RowShard | None = None) -> torch.Tensor:
     """Full-graph pooled forward with matmul pooling, one [N, N] matrix per
     layer (importance aggregator). ``dropout_keep`` holds one mask per hidden
     conv (see ``_dropout``)."""
-    convs = params["convs"]
-    if len(pool_mats) != len(convs):
+    if len(pool_mats) != len(params["convs"]):
         raise ValueError("pooled_forward_dense needs one pool matrix per layer")
-    h = torch.relu(linear(params["input_proj"], x_table, dtype))
-    for i, (pm, conv) in enumerate(zip(pool_mats, convs)):
-        h = _conv_block(conv, h, _dense_pool(pm, h, dtype), dtype)
-        if i < len(convs) - 1:
-            h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
-    return l2_normalize(linear(params["output_proj"], h, dtype).float())
+    return pooled_forward(params, x_table, [], [], dtype=dtype, dropout_rate=dropout_rate,
+                          generator=generator, dropout_keep=dropout_keep,
+                          pool_mats=pool_mats, shard=shard)
 
 
 def pooled_forward(params: Params, x_table: torch.Tensor,
@@ -266,24 +327,18 @@ def pooled_forward(params: Params, x_table: torch.Tensor,
                    generator: torch.Generator | None = None,
                    dropout_keep: list[torch.Tensor] | None = None,
                    aggregator: str = "importance", pool_mats=(),
-                   gather_impl: str = "xla") -> torch.Tensor:
-    """Full-graph forward: embeddings for every row of ``x_table``. Layer
-    ``i < len(pool_mats)`` pools through its operator (``_pool_apply``:
-    dense matrix, hub or block); the others through ``importance_pool``
-    with ``gather_impl``."""
+                   gather_impl: str = "xla", shard: RowShard | None = None) -> torch.Tensor:
+    """Full-graph forward: embeddings for every row of ``x_table`` (the
+    rank's rows under ``shard``). Layer ``i < len(pool_mats)`` pools through
+    its operator (``_pool_apply``: dense matrix, hub or block); the others
+    through ``importance_pool`` with ``gather_impl``."""
     convs = params["convs"]
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
     for i, conv in enumerate(convs):
-        if i < len(pool_mats):
-            h_neigh = _pool_apply(pool_mats[i], h, dtype, gather_impl)
-        else:
-            h_neigh = _gather_layer(
-                conv, h, h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
-                layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
-                aggregator, gather_impl)
-        h = _conv_block(conv, h, h_neigh, dtype)
+        h = _full_graph_layer(i, conv, h, layer_neighbors, layer_weights, pool_mats,
+                              valid_limit, dtype, aggregator, gather_impl, None, shard)
         if i < len(convs) - 1:
-            h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
+            h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep, shard)
     return l2_normalize(linear(params["output_proj"], h, dtype).float())
 
 
@@ -297,8 +352,9 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
                          dropout_keep: list[torch.Tensor] | None = None,
                          aggregator: str = "importance", pool_mats=(),
                          gather_impl: str = "xla",
-                         bwd_layouts: list[SegmentLayout | None] | None = None
-                         ) -> torch.Tensor:
+                         bwd_layouts: list[SegmentLayout | None] | None = None,
+                         shard: RowShard | None = None,
+                         batch_stats: BatchStats | None = None) -> torch.Tensor:
     """Training-step forward: layers 0..L-2 over the full graph (their output
     is the table the next layer gathers from), then the final conv and the
     output projection for ``batch_nodes`` [B] only. Batch ids are clamped into
@@ -310,37 +366,35 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
     ``bwd_layouts[i]`` (``gather_impl="pallas"``) is the backward kernel's
     layout of full-graph layer ``i``'s gather table (a hub layer's residual
     table), or None; the batch layer's rows change every step, so its
-    backward builds its own."""
+    backward builds its own. Under ``shard`` (see the module docstring) the
+    batch rows are this rank's share and ``batch_stats`` their batch norm's
+    group."""
     convs = params["convs"]
     h = torch.relu(linear(params["input_proj"], x_table, dtype))
     for i, conv in enumerate(convs[:-1]):
         layout = bwd_layouts[i] if bwd_layouts else None
-        if i < len(pool_mats):
-            h_neigh = _pool_apply(pool_mats[i], h, dtype, gather_impl, layout)
-        else:
-            h_neigh = _gather_layer(
-                conv, h, h, layer_neighbors[min(i, len(layer_neighbors) - 1)],
-                layer_weights[min(i, len(layer_weights) - 1)], valid_limit, dtype,
-                aggregator, gather_impl, layout)
-        h = _conv_block(conv, h, h_neigh, dtype)
-        h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep)
+        h = _full_graph_layer(i, conv, h, layer_neighbors, layer_weights, pool_mats,
+                              valid_limit, dtype, aggregator, gather_impl, layout, shard)
+        h = _hidden_dropout(h, i, dropout_rate, generator, dropout_keep, shard)
+    h = _gathered(h, shard)
+    take = take_rows if shard is None else (lambda a, r: sharded_rows(a, r, shard.group))
     last, li = convs[-1], len(convs) - 1
     idx = batch_nodes.long().clamp(0, h.shape[0] - 1)
     pm = pool_mats[li] if li < len(pool_mats) else None
     if isinstance(pm, HubPool):
-        h_neigh = hub_pool_matmul_batch(pm, h, batch_nodes, dtype=dtype, gather_impl=gather_impl)
+        h_neigh = hub_pool_matmul_batch(pm, h, batch_nodes, dtype=dtype,
+                                        gather_impl=gather_impl, take=take)
     elif isinstance(pm, BlockPool):
-        h_neigh = block_pool_matmul(pm, h, dtype=dtype)[idx]
+        h_neigh = block_pool_matmul(pm, h, dtype=dtype, group=shard and shard.group)[idx]
     elif pm is not None:
-        h_neigh = _dense_pool(take_rows(pm, batch_nodes.long().clamp(0, pm.shape[0] - 1)),
-                              h, dtype)
+        h_neigh = _dense_pool(take(pm, idx), h, dtype)
     else:
         nbrs = layer_neighbors[min(li, len(layer_neighbors) - 1)]
         w = layer_weights[min(li, len(layer_weights) - 1)]
-        rows = batch_nodes.long().clamp(0, nbrs.shape[0] - 1)
-        h_neigh = _gather_layer(last, h, h[idx], nbrs[rows], w[rows], valid_limit, dtype,
-                                aggregator, gather_impl)
-    h_out = _conv_block(last, h[idx], h_neigh, dtype)
+        rows = batch_nodes.long().clamp(0, (nbrs.shape[0] if shard is None else shard.total) - 1)
+        h_neigh = _gather_layer(last, h, h[idx], take(nbrs, rows), take(w, rows), valid_limit,
+                                dtype, aggregator, gather_impl)
+    h_out = _conv_block(last, h[idx], h_neigh, dtype, batch_stats)
     return l2_normalize(linear(params["output_proj"], h_out, dtype).float())
 
 
@@ -348,8 +402,9 @@ def pooled_forward_batch_dense(params: Params, x_table: torch.Tensor,
                                pool_mats: list[torch.Tensor], batch_nodes: torch.Tensor,
                                dtype=torch.bfloat16, dropout_rate: float = 0.0,
                                generator: torch.Generator | None = None,
-                               dropout_keep: list[torch.Tensor] | None = None
-                               ) -> torch.Tensor:
+                               dropout_keep: list[torch.Tensor] | None = None,
+                               shard: RowShard | None = None,
+                               batch_stats: BatchStats | None = None) -> torch.Tensor:
     """Dense-matmul ``pooled_forward_batch``: full-graph convs for layers
     0..L-2, then the final conv on ``batch_nodes`` through a [B, N] row-gather
     of the last pool matrix."""
@@ -358,7 +413,8 @@ def pooled_forward_batch_dense(params: Params, x_table: torch.Tensor,
         raise ValueError("pooled_forward_batch_dense needs one pool matrix per layer")
     return pooled_forward_batch(params, x_table, [], [], batch_nodes, dtype=dtype,
                                 dropout_rate=dropout_rate, generator=generator,
-                                dropout_keep=dropout_keep, pool_mats=pool_mats)
+                                dropout_keep=dropout_keep, pool_mats=pool_mats,
+                                shard=shard, batch_stats=batch_stats)
 
 
 def edge_forward(params: Params, x: torch.Tensor, edge_src: torch.Tensor,

@@ -97,11 +97,14 @@ def mass_permutation(nbrs, weights, valid_limit: int | None = None) -> np.ndarra
 def build_block_pool(nbrs, weights, perm: np.ndarray, valid_limit: int | None = None,
                      block_size: int = 512, max_blocks: int = 32,
                      dtype: torch.dtype = torch.bfloat16,
-                     device=None) -> tuple[BlockPool, dict]:
+                     device=None, blocks: tuple[int, int] | None = None
+                     ) -> tuple[BlockPool, dict]:
     """Tile the pooling matrix: the index math in numpy on the host, then
     one scatter (``hub_pool.scatter_cells``) into the [R*bmax*bs, cs]
     layout on ``device`` (``nbrs``' device when it is a tensor, else the
-    CPU), reshaped to [R, bmax, bs, cs].
+    CPU), reshaped to [R, bmax, bs, cs]. ``blocks = (b0, b1)`` builds row
+    blocks b0..b1-1 only (a rank's share of a row-sharded operator; the
+    stats are the whole table's).
 
     Returns (BlockPool, stats) where ``dropped_mass`` is the share of the
     pooling weight outside every row block's top ``max_blocks`` column
@@ -157,13 +160,16 @@ def build_block_pool(nbrs, weights, perm: np.ndarray, valid_limit: int | None = 
 
     # 2-D coordinates in [R*bmax*bs, cs] (as the JAX package, whose indices
     # must fit int32; here they are int64 either way).
-    srow = ((rb[kept] * bmax + slot[kept]) * bs
+    b0, b1 = (0, r_blocks) if blocks is None else blocks
+    kept &= (rb >= b0) & (rb < b1)
+    srow = (((rb[kept] - b0) * bmax + slot[kept]) * bs
             + (rows_new[:, None].repeat(k, axis=1)[kept] % bs))
     scol = cols_new[kept] % cs
-    a2 = scatter_cells((r_blocks * bmax * bs, cs), torch.from_numpy(srow),
+    a2 = scatter_cells(((b1 - b0) * bmax * bs, cs), torch.from_numpy(srow),
                        torch.from_numpy(scol),
                        torch.from_numpy(w[kept].astype(np.float32)).to(device), dtype)
-    a_blocks = a2.reshape(r_blocks, bmax, bs, cs)
+    a_blocks = a2.reshape(b1 - b0, bmax, bs, cs)
+    col_idx = col_idx[b0:b1]
 
     perm_pad = np.full(n_pad, n, np.int64)
     perm_pad[:n] = perm
@@ -176,17 +182,24 @@ def build_block_pool(nbrs, weights, perm: np.ndarray, valid_limit: int | None = 
 
 
 def block_pool_matmul(bp: BlockPool, h: torch.Tensor,
-                      dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                      dtype: torch.dtype = torch.bfloat16, group=None) -> torch.Tensor:
     """``A @ h`` [N, D] in ``dtype`` through the tiling: permute the rows,
     gather each row block's [cs, D] slabs, one batched contraction over the
     kept blocks and their columns (f32 accumulation, one rounding), and
     undo the permutation. Gathers are advanced indexing, whose gradient is
-    the deterministic sort-based ``index_put_``."""
+    the deterministic sort-based ``index_put_``. An operator that holds a
+    share of the row blocks (row-sharded over ``group``) contracts its own
+    and all-gathers the outputs."""
+    from ..parallel.collectives import all_gather_rows
+
     n, d = h.shape
-    r_blocks, bmax, bs, cs = bp.a_blocks.shape
-    n_pad = r_blocks * bs
+    r_local, bmax, bs, cs = bp.a_blocks.shape
+    n_pad = bp.perm.shape[0]
     # Pad rows read row n-1, but every A entry addressing them is zero.
     h_p = h.to(dtype)[bp.perm.clamp(max=n - 1)]
-    gathered = h_p.reshape(r_blocks, cs, d)[bp.col_idx]          # [R, bmax, cs, D]
+    gathered = h_p.reshape(n_pad // cs, cs, d)[bp.col_idx]       # [R, bmax, cs, D]
     out_p = torch.einsum("rbic,rbcd->rid", bp.a_blocks.to(dtype), gathered)
-    return out_p.reshape(n_pad, d)[bp.inv].to(dtype)
+    out_p = out_p.reshape(r_local * bs, d)
+    if r_local * bs < n_pad:
+        out_p = all_gather_rows(out_p, group)
+    return out_p[bp.inv].to(dtype)

@@ -106,10 +106,14 @@ def _as_numpy(x) -> np.ndarray:
 
 def build_hub_pool(nbrs, weights, valid_limit: int | None = None, head: int = 4096,
                    residual: int = 8, dtype: torch.dtype = torch.bfloat16,
-                   device=None) -> tuple[HubPool, dict]:
+                   device=None, rows: tuple[int, int] | None = None) -> tuple[HubPool, dict]:
     """Factor the pooling matrix: the index math in numpy on the host, then
     one scatter into the [N, H] slab on ``device`` (``nbrs``' device when it
     is a tensor, else the CPU).
+
+    ``rows = (r0, r1)`` builds the operator's rows r0..r1-1 only (a rank's
+    share of a row-sharded operator); the head and the stats are the whole
+    table's, so the rows equal those of the whole operator.
 
     Returns (HubPool, stats) with ``dropped_mass``, the share of the pooling
     weight outside head + per-row top-``residual`` (0.0 = exact)."""
@@ -156,36 +160,39 @@ def build_hub_pool(nbrs, weights, valid_limit: int | None = None, head: int = 40
     w_head = np.where(in_head, w, 0.0) * scale
     res_w = (res_w * scale).astype(np.float32)
 
-    rows = np.repeat(np.arange(n, dtype=np.int64), k).reshape(n, k)[in_head]
-    a_head = scatter_cells((n, h), torch.from_numpy(rows),
-                           torch.from_numpy(head_pos[cols][in_head]),
-                           torch.from_numpy(w_head[in_head].astype(np.float32)).to(device),
+    r0, r1 = (0, n) if rows is None else rows
+    sel = in_head[r0:r1]
+    res_ids, res_w = res_ids[r0:r1], res_w[r0:r1]
+    cells = np.repeat(np.arange(r1 - r0, dtype=np.int64), k).reshape(r1 - r0, k)[sel]
+    a_head = scatter_cells((r1 - r0, h), torch.from_numpy(cells),
+                           torch.from_numpy(head_pos[cols[r0:r1]][sel]),
+                           torch.from_numpy(w_head[r0:r1][sel].astype(np.float32)).to(device),
                            dtype)
     hp = HubPool(a_head=a_head,
                  head_ids=torch.from_numpy(head_ids.astype(np.int64)).to(device),
                  res_nbrs=torch.from_numpy(np.ascontiguousarray(res_ids, np.int32)).to(device),
                  res_w=torch.from_numpy(res_w).to(device))
     stats = {"dropped_mass": dropped, "head_cols": h, "residual_per_row": r,
-             "a_bytes_built": n * h * dtype.itemsize,
+             "a_bytes_built": (r1 - r0) * h * dtype.itemsize,
              "head_mass": float(w[in_head].sum()) / total if total > 0 else 0.0}
     return hp, stats
 
 
 def build_hub_pool_device(nbrs: torch.Tensor, weights: torch.Tensor,
                           valid_limit: int | None = None, head: int = 4096,
-                          residual: int = 8, dtype: torch.dtype = torch.bfloat16
-                          ) -> tuple[HubPool, dict]:
+                          residual: int = 8, dtype: torch.dtype = torch.bfloat16,
+                          rows: tuple[int, int] | None = None) -> tuple[HubPool, dict]:
     """``build_hub_pool`` in tensor ops on the tables' device: the column
     mass by a sort-based scatter, the head and each row's residual by stable
     descending sorts (lower id first on ties), the slab by ``scatter_cells``
     straight into ``dtype`` (one rounding from f32). The two stats are the
-    only values read back to the host."""
+    only values read back to the host. ``rows`` as ``build_hub_pool``."""
     n, k = nbrs.shape
     if head <= 0:
         head = auto_head(n, dtype)
     if residual <= 0:   # degenerate config: the host builder handles r = 0
         return build_hub_pool(nbrs, weights, valid_limit=valid_limit, head=head,
-                              residual=residual, dtype=dtype)
+                              residual=residual, dtype=dtype, rows=rows)
     h = int(min(head, n))
     r = int(min(residual, k))
     limit = n if valid_limit is None else min(valid_limit, n)
@@ -221,12 +228,15 @@ def build_hub_pool_device(nbrs: torch.Tensor, weights: torch.Tensor,
     w_head = w_in_head * scale
     res_w = (res_w * scale).float().contiguous()
 
-    rows = torch.arange(n, device=dev)[:, None].expand(n, k)
-    a_head = scatter_cells((n, h), rows[in_head], pos[in_head], w_head[in_head], dtype)
+    r0, r1 = (0, n) if rows is None else rows
+    sel, pos = in_head[r0:r1], pos[r0:r1]
+    cells = torch.arange(r1 - r0, device=dev)[:, None].expand(r1 - r0, k)
+    a_head = scatter_cells((r1 - r0, h), cells[sel], pos[sel], w_head[r0:r1][sel], dtype)
     dropped, head_frac = torch.stack([dropped, head_frac]).tolist()
-    hp = HubPool(a_head=a_head, head_ids=head_ids, res_nbrs=res_ids.contiguous(), res_w=res_w)
+    hp = HubPool(a_head=a_head, head_ids=head_ids, res_nbrs=res_ids[r0:r1].contiguous(),
+                 res_w=res_w[r0:r1].contiguous())
     stats = {"dropped_mass": dropped, "head_cols": h, "residual_per_row": r,
-             "a_bytes_built": n * h * dtype.itemsize, "head_mass": head_frac}
+             "a_bytes_built": (r1 - r0) * h * dtype.itemsize, "head_mass": head_frac}
     return hp, stats
 
 
@@ -308,13 +318,14 @@ def hub_pool_matmul(hp: HubPool, h: torch.Tensor, dtype: torch.dtype = torch.bfl
 
 def hub_pool_matmul_batch(hp: HubPool, h: torch.Tensor, batch_nodes: torch.Tensor,
                           dtype: torch.dtype = torch.bfloat16,
-                          gather_impl: str = "xla") -> torch.Tensor:
-    """Rows ``batch_nodes`` (clamped into the table) of
+                          gather_impl: str = "xla", take=take_rows) -> torch.Tensor:
+    """Rows ``batch_nodes`` (clamped into the table ``h``) of
     ``hub_pool_matmul(hp, h)`` without pooling the whole graph: rows of A
     are independent, so a [B, H] row gather of the slab and a [B, R]
-    residual replace the full product."""
+    residual replace the full product. ``take(a, rows)`` gathers the
+    operator's rows (across ranks where it is row-sharded)."""
     hd = h.to(dtype)
-    rows = batch_nodes.long().clamp(0, hp.a_head.shape[0] - 1)
-    out = _SlabProduct.apply(take_rows(hp.a_head, rows), hd[hp.head_ids])
-    res = _residual(hd, hp.res_nbrs[rows], hp.res_w[rows], gather_impl, None)
+    rows = batch_nodes.long().clamp(0, h.shape[0] - 1)
+    out = _SlabProduct.apply(take(hp.a_head, rows), hd[hp.head_ids])
+    res = _residual(hd, take(hp.res_nbrs, rows), take(hp.res_w, rows), gather_impl, None)
     return (out + res).to(dtype)

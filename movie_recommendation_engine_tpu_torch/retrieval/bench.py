@@ -2,9 +2,10 @@
 latency + recall@k for exact / LSH / IVF.
 
 Port of ``movie_recommendation_engine_tpu/retrieval/bench.py`` (the
-reference's ``benchmark_search_methods``) for the methods ``exact``,
-``lsh``, ``lsh_rerank`` and ``ivf``; the sharded indexes are not ported yet.
-A search is timed on the host clock from the call to its results on the
+reference's ``benchmark_search_methods``) for every method: ``exact``,
+``lsh``, ``lsh_rerank``, ``ivf`` and the row-sharded ``sharded_exact`` and
+``sharded_ivf`` (``retrieval/sharded.py``; every rank of the process group
+builds and searches together). A search is timed on the host clock from the call to its results on the
 host (the copy waits for the device), after one warm-up call that is not
 counted (it pays the kernels' build and load).
 """
@@ -22,21 +23,38 @@ from ..core.device import resolve_device
 from .exact import ExactIndex
 from .ivf import WeakANDIndex
 from .lsh import LSHIndex
+from .sharded import ShardedExactIndex, ShardedIVFIndex
 
 NAMES = {
     "exact": "Exact (Brute Force)",
     "lsh": "Locality-Sensitive Hashing",
     "lsh_rerank": "LSH + exact rerank (fused shortlist)",
     "ivf": "Weak AND (IVF)",
+    "sharded_exact": "Exact (row-sharded over the process group)",
+    "sharded_ivf": "Weak AND (IVF, row-sharded over the process group)",
 }
+
+
+def _mesh(cfg):
+    """The mesh of ``cfg.mesh.mesh_shape`` for a sharded index, else None
+    (every rank of the process group, or this process alone)."""
+    if cfg is None or cfg.mesh.mesh_shape is None:
+        return None
+    from ..parallel.mesh import make_mesh
+
+    return make_mesh(tuple(cfg.mesh.mesh_shape))
 
 
 def make_index(method: str, dim: int, cfg=None, seed: int = 0, device=None,
                planes=None, init_idx=None):
     """An unbuilt index on ``device``. ``planes`` injects LSH hyperplanes,
-    ``init_idx`` the IVF k-means' initial rows."""
+    ``init_idx`` the IVF k-means' initial rows. The sharded methods split
+    the corpus over the model axis of ``cfg.mesh.mesh_shape``, else over
+    every rank."""
     if method == "exact":
         return ExactIndex(dim, device=device)
+    if method == "sharded_exact":
+        return ShardedExactIndex(dim, mesh=_mesh(cfg), device=device)
     if method in ("lsh", "lsh_rerank"):
         bits = cfg.search.lsh_bits if cfg else 256
         tables = cfg.search.lsh_tables if cfg else 16
@@ -45,16 +63,15 @@ def make_index(method: str, dim: int, cfg=None, seed: int = 0, device=None,
             rerank = 100   # the JAX package's default shortlist for this method
         return LSHIndex(dim, num_bits=bits, num_tables=tables, seed=seed,
                         rerank=rerank, planes=planes, device=device)
-    if method == "ivf":
-        return WeakANDIndex(
-            dim, num_partitions=cfg.search.ivf_partitions if cfg else 100,
-            candidates_factor=cfg.search.ivf_factor if cfg else 0,
-            nprobe=cfg.search.ivf_nprobe if cfg else 20, seed=seed,
-            balance_factor=cfg.search.ivf_balance_factor if cfg else 4.0,
-            device=device, init_idx=init_idx)
-    if method in ("sharded_exact", "sharded_ivf"):
-        raise NotImplementedError(
-            f"search method {method!r} is not ported yet (ROADMAP queue 1, multi-device)")
+    if method in ("ivf", "sharded_ivf"):
+        kw = dict(num_partitions=cfg.search.ivf_partitions if cfg else 100,
+                  candidates_factor=cfg.search.ivf_factor if cfg else 0,
+                  nprobe=cfg.search.ivf_nprobe if cfg else 20, seed=seed,
+                  balance_factor=cfg.search.ivf_balance_factor if cfg else 4.0,
+                  device=device, init_idx=init_idx)
+        if method == "sharded_ivf":
+            return ShardedIVFIndex(dim, mesh=_mesh(cfg), **kw)
+        return WeakANDIndex(dim, **kw)
     raise ValueError(f"unknown search method: {method}")
 
 

@@ -20,6 +20,11 @@ their teleport term and drop the rest, as in JAX.
 
 Ranking goes through ``core.ranking.top_k``, so the lower node id comes
 first among equal scores (``jax.lax.top_k``'s order).
+
+Every function also takes a row-sharded ``sampling.sharded_walk.
+ShardedDeviceGraph``: each rank pushes along its own rows' out-edges and
+one sum over the model axis merges the frontier (equal to float
+tolerance; every rank of the group must call).
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ import torch
 
 from ..core.ranking import top_k
 from ..ops.pool import EdgeSlices, edge_slices, slice_sum
+from ..parallel import collectives as coll
 from .random_walk import DeviceGraph
+from .sharded_walk import ShardedDeviceGraph, sharded_push_operator
 
 # Incoming edges summed by one gather-pool row. A masked slot still loads a
 # row, so narrow slices waste less on low in-degree targets: one push on a
@@ -42,8 +49,11 @@ SLICE = 16
 
 def push_operator(graph: DeviceGraph, num_nodes: int | None = None) -> EdgeSlices:
     """P^T of the graph on its device: target t's slices hold the edges s -> t
-    with weight ``w[s->t] / sum_u w[s->u]``, sources ascending."""
+    with weight ``w[s->t] / sum_u w[s->u]``, sources ascending (a sharded
+    graph's: the rank's sources only)."""
     n = graph.num_nodes if num_nodes is None else num_nodes
+    if isinstance(graph, ShardedDeviceGraph):
+        return sharded_push_operator(graph, n, SLICE)
     dev = graph.indptr.device
     deg = graph.indptr[1:] - graph.indptr[:-1]
     src = torch.repeat_interleave(torch.arange(graph.num_nodes, device=dev), deg)
@@ -59,15 +69,16 @@ def push_operator(graph: DeviceGraph, num_nodes: int | None = None) -> EdgeSlice
 
 
 def _ppr_columns(push: EdgeSlices, sources: torch.Tensor, alpha: float,
-                 num_iterations: int) -> torch.Tensor:
-    """[N, B] PPR mass, one column per source."""
+                 num_iterations: int, group=None) -> torch.Tensor:
+    """[N, B] PPR mass, one column per source; ``group`` sums the pushes of
+    a sharded graph's ranks."""
     n, b, dev = push.num_nodes, sources.shape[0], push.nbrs.device
     r = torch.zeros((n, b), device=dev)
     r[sources.long(), torch.arange(b, device=dev)] = 1.0
     ppr = torch.zeros_like(r)
     for _ in range(num_iterations):
         ppr = ppr + alpha * r
-        r = (1.0 - alpha) * slice_sum(r, push)
+        r = (1.0 - alpha) * coll.all_reduce_(slice_sum(r, push), group)
     return ppr
 
 
@@ -78,7 +89,11 @@ def ppr_scores(graph: DeviceGraph, sources, num_nodes: int, alpha: float = 0.15,
     if push is None:
         push = push_operator(graph, num_nodes)
     sources = torch.as_tensor(sources, device=push.nbrs.device)
-    return _ppr_columns(push, sources, alpha, num_iterations).t()
+    return _ppr_columns(push, sources, alpha, num_iterations, _group(graph)).t()
+
+
+def _group(graph) -> object:
+    return graph.group if isinstance(graph, ShardedDeviceGraph) else None
 
 
 def precompute_top_neighbors(csr, graph: DeviceGraph, nodes, num_neighbors: int = 10,
@@ -110,9 +125,10 @@ def precompute_top_neighbors(csr, graph: DeviceGraph, nodes, num_neighbors: int 
 
 def _top_neighbors_chunk(push: EdgeSlices, sources: torch.Tensor, num_neighbors: int,
                          alpha: float, num_iterations: int,
-                         restrict_below: int | None) -> tuple[torch.Tensor, torch.Tensor]:
+                         restrict_below: int | None,
+                         group=None) -> tuple[torch.Tensor, torch.Tensor]:
     num_nodes = push.num_nodes
-    scores = _ppr_columns(push, sources, alpha, num_iterations).t()
+    scores = _ppr_columns(push, sources, alpha, num_iterations, group).t()
     if restrict_below is not None:
         # Rank only movie-node targets (walk.count_nodes="movies").
         scores[:, restrict_below:] = 0.0
@@ -147,7 +163,7 @@ def all_node_neighborhood_tables_ppr(graph: DeviceGraph, num_layers: int, num_ne
     nb_chunks, w_chunks = [], []
     for i in range(0, ids.shape[0], batch):
         nb, w = _top_neighbors_chunk(push, ids[i:i + batch], num_neighbors, alpha,
-                                     num_iterations, restrict_below)
+                                     num_iterations, restrict_below, _group(graph))
         nb_chunks.append(nb)
         w_chunks.append(w)
     nbrs = torch.cat(nb_chunks)[:n]

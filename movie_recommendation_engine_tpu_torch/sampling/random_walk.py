@@ -40,6 +40,10 @@ class DeviceGraph(NamedTuple):
     def sentinel(self) -> int:
         return self.num_nodes
 
+    def next_hop(self, cur: torch.Tensor, u: torch.Tensor,
+                 n_iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+        return _weighted_next_hop(self, cur, u, n_iters)
+
 
 def device_graph(csr: CSRGraph, device) -> DeviceGraph:
     return DeviceGraph(
@@ -90,7 +94,9 @@ def random_walks(graph: DeviceGraph, starts: torch.Tensor, num_walks: int,
     steps from each start: [B, num_walks * walk_length] int32, the sentinel
     at halted positions. Start nodes themselves are not recorded.
     ``uniforms`` ([walk_length, B * num_walks] f32 in [0, 1)) replaces the
-    draws from ``generator``."""
+    draws from ``generator``. ``graph`` may also be a row-sharded
+    ``sampling.sharded_walk.ShardedDeviceGraph``, whose hops are bit-identical
+    (every rank of its group must call)."""
     b, w = starts.shape[0], num_walks
     device = graph.indptr.device
     if uniforms is None:
@@ -100,7 +106,7 @@ def random_walks(graph: DeviceGraph, starts: torch.Tensor, num_walks: int,
     alive = torch.ones(b * w, dtype=torch.bool, device=device)
     steps = []
     for step in range(walk_length):
-        nxt, has_nbrs = _weighted_next_hop(graph, cur, uniforms[step], n_iters)
+        nxt, has_nbrs = graph.next_hop(cur, uniforms[step], n_iters)
         record = alive & has_nbrs
         steps.append(torch.where(record, nxt, graph.sentinel))
         cur = torch.where(record, nxt, cur)

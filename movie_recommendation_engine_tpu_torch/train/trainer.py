@@ -2,13 +2,22 @@
 the train step, the epoch loop, evaluation and checkpoint / resume.
 
 Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for every
-pooling rung (dense, hybrid, hub, block, gather) and every aggregator (a
-kind other than ``importance`` builds no pool operators and pools through
-its gather layers, as in JAX); the device mesh is not ported yet (ROADMAP
-queue 1). Contrastive training over shared random and rank-window hard
-negatives on the pooled embeddings: per step, the
-negatives, the batch-restricted pooled forward with dropout, the loss
-(``train.loss``, NCE by default), its gradient and an Adam update.
+pooling rung (dense, hybrid, hub, block, gather), every aggregator (a kind
+other than ``importance`` builds no pool operators and pools through its
+gather layers, as in JAX) and the (data, model) device mesh. Contrastive
+training over shared random and rank-window hard negatives on the pooled
+embeddings: per step, the negatives, the batch-restricted pooled forward
+with dropout, the loss (``train.loss``, NCE by default), its gradient and an
+Adam update (``parallel/sharding.py``).
+
+Under ``mesh.mesh_shape = (d, m)`` (one process a rank, the process group
+joined first: ``parallel.mesh.distributed_init``) every rank draws the same
+global draws and runs its share of each step; with ``mesh.shard_tables``
+and ``m > 1`` the feature table is padded to a multiple of ``m`` (as JAX's)
+and it, the walk tables and the pool operators hold the rank's rows only
+(``mesh.shard_graph`` splits the CSR too, ``sampling/sharded_walk.py``).
+The gather kernels stay on under a mesh. Only the coordinator writes a
+checkpoint; every rank loads it.
 
 Where JAX scans a jitted block of steps, ``train_steps`` is a Python loop of
 steps on the device. The epoch is still cut into blocks of
@@ -43,7 +52,11 @@ from ..ops import block_sparse as bsp
 from ..ops import hub_pool as hub_mod
 from ..ops.hub_pool import HubPool
 from ..ops.pool import segment_layout
+from ..parallel import collectives as coll
+from ..parallel import mesh as mesh_mod
+from ..parallel import sharding
 from ..sampling import negative, ppr, random_walk as rw
+from ..sampling import sharded_walk
 from . import optim
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -59,11 +72,6 @@ class StepDraws(NamedTuple):
     keep: list[torch.Tensor] | None = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP queue 1)")
-
-
 class Trainer:
     """Dataset + model state for one config, on ``device`` (``cuda`` unless
     ``"cpu"`` is asked for)."""
@@ -74,8 +82,13 @@ class Trainer:
         self.data = data
         self.log = logger or MetricsLogger()
         self.device = resolve_device(device)
+        # ---- optional device mesh -------------------------------------------
+        self.mesh = self.world = self.shard = None
         if cfg.mesh.mesh_shape is not None:
-            raise _not_ported("mesh.mesh_shape (multi-device execution)")
+            self.mesh = mesh_mod.make_mesh(tuple(cfg.mesh.mesh_shape))
+            self.world = torch.distributed.group.WORLD
+            self.device = mesh_mod.rank_device(self.device)
+            self._data_size = mesh_mod.axis_size(self.mesh, "data")
         if cfg.train.lr_plateau_monitor not in ("train_loss", "val_metric"):
             raise ValueError(
                 "train.lr_plateau_monitor must be 'train_loss' or "
@@ -87,7 +100,6 @@ class Trainer:
         else:
             self.csr = data.build_item_similarity_graph(
                 threshold=cfg.graph.similarity_threshold, logger=self.log)
-        self.graph = rw.device_graph(self.csr, self.device)
         self.n_iters = rw.search_iters(self.csr)
 
         # ---- features ------------------------------------------------------
@@ -114,8 +126,22 @@ class Trainer:
         else:
             table = feat_mod.node_feature_table(movie_features, data.num_users)
             self.valid_limit = self.csr.num_nodes
-        self.x_table = torch.as_tensor(np.asarray(table, np.float32), device=self.device)
-        self.table_rows = int(self.x_table.shape[0])
+        table = np.asarray(table, np.float32)
+        m = 1 if self.mesh is None else mesh_mod.axis_size(self.mesh, "model")
+        if cfg.mesh.shard_tables and m > 1:
+            # Row-shard the tables over the model axis: the rows padded to
+            # a multiple of it (table_rows changes as in JAX), the rank
+            # keeping its own.
+            table, _ = mesh_mod.pad_to_multiple(table, m)
+            self.shard = mesh_mod.row_shard(self.mesh, table.shape[0])
+        self.table_rows = int(table.shape[0])
+        rows = slice(None) if self.shard is None else slice(self.shard.start, self.shard.stop)
+        self.x_table = torch.as_tensor(table[rows], device=self.device)
+        if self.shard is not None and cfg.mesh.shard_graph:
+            self.graph = sharded_walk.sharded_device_graph(self.csr, self.shard.group,
+                                                           self.device)
+        else:
+            self.graph = rw.device_graph(self.csr, self.device)
 
         # ---- splits & pairs ------------------------------------------------
         tr, va, te = data.temporal_split(cfg.train.val_ratio, cfg.train.test_ratio)
@@ -210,9 +236,11 @@ class Trainer:
 
     def set_neighborhood_tables(self, tables) -> None:
         """Use the given per-layer ([N, K] ids, [N, K] weights) tables (tensors
-        or arrays) and build the pool operators of the config's rung
-        (``_pool_operators``). With ``gather_impl="pallas"`` it also builds
-        the backward kernel's layouts (``full_graph_layouts``)."""
+        or arrays, every table row) and build the pool operators of the
+        config's rung (``_pool_operators``). With ``gather_impl="pallas"`` it
+        also builds the backward kernel's layouts (``full_graph_layouts``).
+        Under a row shard the operators are built for the rank's rows and
+        the rank keeps its rows of the tables."""
         def on_device(x, dtype):
             return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
                                    dtype=dtype, device=self.device)
@@ -223,11 +251,14 @@ class Trainer:
         # sets do not fit on the card together.
         self.pool_mats = ()
         self.bwd_layouts = None
-        if (self.cfg.model.aggregator_type != "importance"
-                or self.cfg.train.train_path == "mlp"):
-            return
-        self.pool_mats = self._pool_operators()
-        if self.gather_impl == "pallas":
+        pooled = (self.cfg.model.aggregator_type == "importance"
+                  and self.cfg.train.train_path != "mlp")
+        if pooled:
+            self.pool_mats = self._pool_operators()
+        if self.shard is not None:
+            rows = slice(self.shard.start, self.shard.stop)
+            self.nbr_tables = [(nb[rows], w[rows]) for nb, w in self.nbr_tables]
+        if pooled and self.gather_impl == "pallas":
             self.bwd_layouts = self.full_graph_layouts()
 
     def full_graph_layouts(self) -> list:
@@ -236,7 +267,8 @@ class Trainer:
         ``valid_limit``), a hub layer's residual ids (limit N, as the
         residual pools over the whole table); None for a dense or block
         layer. Layers 0..L-2 pool the whole graph with the same tables
-        until the next refresh (the last layer pools the batch's rows)."""
+        until the next refresh (the last layer pools the batch's rows).
+        Under a row shard: the rank's rows, with global ids."""
         limit = min(self.valid_limit, self.table_rows)
         layouts = []
         for i in range(self.cfg.model.num_layers - 1):
@@ -259,7 +291,9 @@ class Trainer:
         ``gather`` (no operators). ``auto`` takes dense, then hybrid, up to
         their row limits; above them hub, then block when a hub layer drops
         more mass than its gate (after one doubling of the residual), then
-        gather when a block layer does."""
+        gather when a block layer does. Under a row shard each operator
+        holds the rank's rows (a block operator its row blocks, where they
+        divide the model axis)."""
         m = self.cfg.model
         impl, n_layers, rows = m.pool_impl, m.num_layers, self.table_rows
         n_dense = n_hub = n_block = 0
@@ -291,8 +325,10 @@ class Trainer:
             pool_dtype = hub_mod.resolve_pool_matrix_dtype(m.pool_matrix_dtype, rows, "dense")
             # Cast after the bf16 build, as JAX does (a scatter-add into
             # float8 would round every addition).
+            mine = slice(None) if self.shard is None else slice(self.shard.start, self.shard.stop)
             return tuple(
-                pinsage.build_pool_matrix(nbrs, w, num_cols=rows, valid_limit=self.valid_limit,
+                pinsage.build_pool_matrix(nbrs[mine], w[mine], num_cols=rows,
+                                          valid_limit=self.valid_limit,
                                           dtype=torch.bfloat16).to(pool_dtype)
                 for nbrs, w in self.nbr_tables[:n_dense])
         return ()
@@ -312,7 +348,8 @@ class Trainer:
             def build(residual):
                 return hub_mod.build_hub_pool_device(
                     nbrs, w, valid_limit=self.valid_limit, head=m.hub_pool_head,
-                    residual=residual, dtype=pool_dtype)
+                    residual=residual, dtype=pool_dtype,
+                    rows=None if self.shard is None else (self.shard.start, self.shard.stop))
 
             hp, stats = build(m.hub_pool_residual)
             self.log.log("hub_pool", **stats)
@@ -342,30 +379,33 @@ class Trainer:
             if m.block_pool_order == "mass":
                 self._block_perm = bsp.mass_permutation(*tables[0], valid_limit=self.valid_limit)
             else:
+                feats = (self.x_table if self.shard is None
+                         else coll.all_gather_rows(self.x_table, self.shard.group))
                 self._block_perm = bsp.cluster_permutation(
-                    self.x_table, num_clusters=m.block_pool_clusters, seed=self.cfg.train.seed)
+                    feats, num_clusters=m.block_pool_clusters, seed=self.cfg.train.seed)
             self.log.log("block_cluster", order=m.block_pool_order,
                          seconds=time.perf_counter() - t0)
         pool_dtype = hub_mod.resolve_pool_matrix_dtype(m.pool_matrix_dtype, self.table_rows,
                                                        "block")
+        blocks = None
+        r_blocks = -(-self.table_rows // m.block_pool_block_size)
+        if self.shard is not None and r_blocks % self.shard.size == 0:
+            # Row blocks divide the model axis: the rank holds its share
+            # (else every rank holds them all, as JAX replicates them).
+            per = r_blocks // self.shard.size
+            blocks = (self.shard.index * per, (self.shard.index + 1) * per)
         mats = []
         for nbrs, w in tables:
             bp, stats = bsp.build_block_pool(
                 nbrs, w, self._block_perm, valid_limit=self.valid_limit,
                 block_size=m.block_pool_block_size, max_blocks=m.block_pool_max_blocks,
-                device=self.device)
+                device=self.device, blocks=blocks)
             self.log.log("block_pool", **stats)
             if stats["dropped_mass"] > m.block_pool_max_dropped_mass:
                 self.log.log("block_pool_fallback", dropped_mass=stats["dropped_mass"])
                 return ()
             mats.append(bp._replace(a_blocks=bp.a_blocks.to(pool_dtype)))
         return tuple(mats)
-
-    def _dense_fast_path(self) -> bool:
-        """A dense matrix for every layer: the all-matmul forwards. A full
-        set of hub or block operators goes through the general forwards."""
-        return (len(self.pool_mats) == self.cfg.model.num_layers
-                and all(torch.is_tensor(pm) for pm in self.pool_mats))
 
     # ---- train step -------------------------------------------------------
 
@@ -385,59 +425,29 @@ class Trainer:
                 generator=self.generator)
         return StepDraws(rand_negs, hard)
 
-    def _loss(self, params, q: torch.Tensor, p: torch.Tensor, draws: StepDraws,
-              epoch: float) -> torch.Tensor:
+    def step_config(self, epoch: float) -> sharding.ShardedStepConfig:
+        """The step's settings (``parallel.sharding.step_loss``) at ``epoch``."""
         cfg = self.cfg
-        b, num_rand = q.shape[0], draws.random.shape[0]
-        nodes = [q, p, draws.random]
-        if draws.hard is not None:
-            nodes.append(draws.hard.reshape(-1))
-        all_nodes = torch.cat([x.to(torch.int32) for x in nodes])
-        drop = dict(dropout_rate=cfg.model.dropout, generator=self.generator,
-                    dropout_keep=draws.keep)
-        if cfg.train.train_path == "mlp":
-            emb = pinsage.mlp_forward(params, self.x_table[all_nodes.long()],
-                                      self.compute_dtype)
-        elif self._dense_fast_path():
-            emb = pinsage.pooled_forward_batch_dense(
-                params, self.x_table, list(self.pool_mats), all_nodes,
-                dtype=self.compute_dtype, **drop)
-        else:
-            emb = pinsage.pooled_forward_batch(
-                params, self.x_table, [t[0] for t in self.nbr_tables],
-                [t[1] for t in self.nbr_tables], all_nodes, valid_limit=self.valid_limit,
-                dtype=self.compute_dtype, aggregator=cfg.model.aggregator_type,
-                pool_mats=self.pool_mats, gather_impl=self.gather_impl,
-                bwd_layouts=self.bwd_layouts if self.gather_impl == "pallas" else None,
-                **drop)
-        q_emb, p_emb = emb[:b], emb[b:2 * b]
-        r_emb = emb[2 * b:2 * b + num_rand]
-        h_emb = (emb[2 * b + num_rand:].reshape(b, draws.hard.shape[1], -1)
-                 if draws.hard is not None else None)
-
-        kind = cfg.train.loss if cfg.train.train_path != "mlp" else "cosine"
-        if kind == "cosine":
-            return losses.cosine_objective(q_emb, p_emb)
-        if kind == "batch_hard":
-            return losses.batch_hard_triplet_loss(q_emb, p_emb, cfg.train.margin)
-        if kind == "max_margin":
-            return losses.shared_pool_max_margin_loss(q_emb, p_emb, r_emb, cfg.train.margin)
-        if kind == "nce":
-            return losses.nce_loss(q_emb, p_emb, r_emb, h_emb,
-                                   temperature=cfg.train.nce_temperature)
-        return losses.curriculum_loss(
-            q_emb, p_emb, r_emb, h_emb, epoch, margin=cfg.train.margin,
-            max_epochs=cfg.train.epochs, hard_negative_factor=cfg.train.hard_neg_factor)
+        return sharding.ShardedStepConfig(
+            aggregator=cfg.model.aggregator_type, loss=cfg.train.loss, margin=cfg.train.margin,
+            epoch=epoch, max_epochs=cfg.train.epochs, hard_neg_factor=cfg.train.hard_neg_factor,
+            nce_temperature=cfg.train.nce_temperature, valid_limit=self.valid_limit,
+            dtype=self.compute_dtype, dropout=cfg.model.dropout, gather_impl=self.gather_impl,
+            train_path=cfg.train.train_path)
 
     def loss_and_grads(self, q: torch.Tensor, p: torch.Tensor, draws: StepDraws,
                        epoch: float) -> tuple[torch.Tensor, Any]:
         """The step's loss and its gradient in every parameter (zeros for
-        the ones the loss does not read, as JAX's), at ``self.params``."""
-        flat = tree.flatten(self.params)
-        leaves = [x.detach().requires_grad_() for x in flat.values()]
-        loss = self._loss(tree.unflatten(dict(zip(flat, leaves))), q, p, draws, epoch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-        return loss.detach(), tree.unflatten(dict(zip(flat, grads)))
+        the ones the loss does not read, as JAX's), at ``self.params``; under
+        a mesh, of the whole batch (each rank's share summed)."""
+        scfg = self.step_config(epoch)
+        return sharding.loss_and_grads(
+            lambda params: sharding.step_loss(
+                scfg, params, self.x_table, [t[0] for t in self.nbr_tables or []],
+                [t[1] for t in self.nbr_tables or []], self.pool_mats, q, p, draws.random,
+                draws.hard, self.generator, draws.keep, self.bwd_layouts, self.shard,
+                self.world),
+            self.params, self.world)
 
     def train_steps(self, q_blk, p_blk, lr: float, epoch: float, num_hard: int,
                     draws: list[StepDraws] | None = None) -> torch.Tensor:
@@ -471,8 +481,11 @@ class Trainer:
             pairs = pairs[rng.choice(pairs.shape[0], size=cap, replace=False)]
         else:
             pairs = pairs[rng.permutation(pairs.shape[0])]
-        # Pad to a whole number of fixed-size batches (wrap-around).
+        # Pad to a whole number of fixed-size batches (wrap-around). Under a
+        # mesh the batch divides the data axis, as JAX's.
         bsz = min(self.cfg.train.batch_size, max(pairs.shape[0], 1))
+        if self.mesh is not None:
+            bsz = max(bsz - bsz % self._data_size, self._data_size)
         pad = (-pairs.shape[0]) % bsz
         if pad:
             reps = 2 + pad // max(pairs.shape[0], 1)
@@ -538,24 +551,20 @@ class Trainer:
 
     @torch.no_grad()
     def movie_embeddings(self, params=None) -> torch.Tensor:
-        """[num_movies, embed_dim] f32 via the full pooled forward."""
+        """[num_movies, embed_dim] f32 via the full pooled forward (under a
+        row shard each rank embeds its rows, then all-gathers them)."""
         if self.nbr_tables is None:
             self.refresh_neighborhoods()
         params = params if params is not None else self.params
         m = self.data.num_movies
-        if self.cfg.train.train_path == "mlp":
-            return pinsage.mlp_forward(params, self.x_table[:m], self.compute_dtype)
-        if self._dense_fast_path():
-            emb = pinsage.pooled_forward_dense(params, self.x_table,
-                                               list(self.pool_mats),
-                                               dtype=self.compute_dtype)
-        else:
-            emb = pinsage.pooled_forward(
-                params, self.x_table, [t[0] for t in self.nbr_tables],
-                [t[1] for t in self.nbr_tables], valid_limit=self.valid_limit,
-                dtype=self.compute_dtype,
-                aggregator=self.cfg.model.aggregator_type,
-                pool_mats=self.pool_mats, gather_impl=self.gather_impl)
+        x = self.x_table
+        if self.cfg.train.train_path == "mlp" and self.shard is None:
+            x = x[:m]
+        emb = sharding.embed(self.step_config(0.0), params, x,
+                             [t[0] for t in self.nbr_tables], [t[1] for t in self.nbr_tables],
+                             self.pool_mats, self.shard)
+        if self.shard is not None:
+            emb = coll.all_gather_rows(emb, self.shard.group)
         return emb[:m]
 
     def evaluate(self, pairs: np.ndarray | None = None, params=None) -> dict[str, float]:
@@ -595,13 +604,18 @@ class Trainer:
 
     def save_checkpoint(self, path: str, tag: str = "last") -> None:
         """Params, Adam state and a uint32[2] ``rng`` in the JAX package's
-        format (``.npz`` + ``.meta.json``), which its Trainer resumes."""
+        format (``.npz`` + ``.meta.json``), which its Trainer resumes. Every
+        rank draws the rng words (the generators stay in step); only the
+        coordinator writes, then every rank waits at a barrier, so none
+        reads or exits before the write lands."""
         flat = {f"params/{k}": v for k, v in ckpt.params_to_jax(self.params).items()}
         flat.update(optim.state_to_jax(self.opt_state))
         flat["rng"] = self._rng_words()
         meta = {"epoch": self.epoch, "best_metric": self.best_metric,
                 "plateau": self.plateau._asdict(), "config": self.cfg.to_dict(), "tag": tag}
-        ckpt.save_flat(path, flat, meta)
+        if mesh_mod.is_coordinator():
+            ckpt.save_flat(path, flat, meta)
+        mesh_mod.barrier(f"ckpt:{tag}")
 
     def load_checkpoint(self, path: str) -> None:
         """Params, Adam state, rng (the generator is reseeded from it),
