@@ -73,6 +73,23 @@ Phases, one JSON line each:
    an ``xla`` step in f32, one step each of the gather and hybrid rungs on
    the same tables and draws, and both kernels timed at the hub residual's
    shapes (the full graph, B = N, and the batch layer, B = 1524).
+7b. train_graph — the train step and the embedding pass as CUDA graphs
+   (``train/step_graph.py``) on the gather rung with the kernels (4k,
+   ``gather_impl=pallas``), the default config's dense rung (4k) and
+   ``train_hub``'s ``hubf`` trainer: a graphed trainer and an eager twin
+   (``graphed = False``) from one state run the blocks of epochs 0 and 1
+   (12 batches of 512 an epoch; 0 and 1 hard negative, so two step graphs;
+   the checkpoint's reseed before each epoch; at 4k new tables before epoch
+   1, copied into the captured storages), every block under
+   ``set_sync_debug_mode("error")``. Params, Adam state, losses and the
+   generator's state and next words must be bitwise equal (else the first
+   leaf that differs is named), the launch counts equal (replays counted),
+   and the graphed embedding pass bitwise equal to the eager one. Reports
+   each capture (kernel nodes, seconds, pool bytes) and, for the step and
+   the embedding pass, wall per call (12 in turns), device time, kernels
+   and busy share, graphed and eager. Every other phase's ``fit`` and
+   ``train_steps`` without draws replays the graphs too; steps given draws
+   run eager.
 8. ppr     — ``walk.strategy=ppr`` on the serve phase's corpus with
    ``pool_impl=gather``, ``gather_impl=pallas``: ``Engine.fit`` for 2 epochs
    (launch counts zeroed just before and read just after) builds the tables
@@ -776,8 +793,9 @@ def fit_config(dev, overrides: dict, ckpt_dir: str) -> tuple:
     ref, got = tr.evaluate(tr.val_pairs), again.evaluate(tr.val_pairs)
     hr = {k: v for k, v in ref.items() if k.startswith("hit_rate")}
     check(all(got[k] == v for k, v in hr.items()), f"reloaded model: {got} != {ref}")
-    check(again.epoch == 2 and again.opt_state.step == tr.opt_state.step, "reloaded state")
-    summary = {"fit_s": fit_s, "adam_steps": tr.opt_state.step, "launches": launches,
+    check(again.epoch == 2 and int(again.opt_state.step) == int(tr.opt_state.step),
+          "reloaded state")
+    summary = {"fit_s": fit_s, "adam_steps": int(tr.opt_state.step), "launches": launches,
                "history": [{k: h[k] for k in ("loss", "num_hard", "examples_per_sec",
                                                "step_wall_seconds", "refresh_seconds",
                                                "val_hit_rate@10")} for h in hist],
@@ -790,7 +808,7 @@ def copy_state(params, opt):
     from movie_recommendation_engine_tpu_torch.train import optim
 
     clone = lambda t: tree.map_tree(lambda x: x.detach().clone(), t)  # noqa: E731
-    return clone(params), optim.AdamState(opt.step, clone(opt.mu), clone(opt.nu))
+    return clone(params), optim.AdamState(opt.step.clone(), clone(opt.mu), clone(opt.nu))
 
 
 def step_kernel_vs_xla(tr, q, p) -> dict:
@@ -1438,6 +1456,189 @@ def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
 
 
 # ---------------------------------------------------------------------------
+# 7b. the train step and the embedding pass as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_PAIRS = 6144       # 12 batches of 512 an epoch: two blocks of 8 steps
+
+
+def state_leaves(tr) -> dict:
+    """The trainer's params and Adam state, by checkpoint key."""
+    from movie_recommendation_engine_tpu_torch.core import tree
+
+    out = {f"params/{k}": v for k, v in tree.flatten(tr.params).items()}
+    for name in ("mu", "nu"):
+        out.update({f"opt/{name}/{k}": v
+                    for k, v in tree.flatten(getattr(tr.opt_state, name)).items()})
+    out["opt/step"] = tr.opt_state.step
+    return out
+
+
+def first_difference(a: dict, b: dict) -> dict | None:
+    """The first leaf (in ``a``'s order) that differs bitwise between the two
+    trees, with its largest absolute difference, or None."""
+    for k in a:
+        if not same_bits(a[k], b[k]):
+            err = (float((a[k].double() - b[k].double()).abs().max())
+                   if a[k].shape == b[k].shape else None)
+            return {"leaf": k, "max_abs_err": err}
+    return None
+
+
+def graph_epochs(tr, epochs: tuple, refresh: bool) -> dict:
+    """The blocks of ``epochs`` as ``train_epoch`` runs them, each block under
+    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), the
+    launch counts zeroed before the first and read after the last. Before
+    each epoch the checkpoint's rng words are drawn (which reseeds the
+    generator, as ``save_checkpoint`` does); with ``refresh`` the tables are
+    resampled before each epoch after the first."""
+    losses, words = [], []
+    zero_launches()
+    for e in epochs:
+        if refresh and e != epochs[0]:
+            tr.refresh_neighborhoods()
+        words.append(tr._rng_words().tolist())
+        q_all, p_all, block, _, num_hard = tr.epoch_batches(e)
+        for s0 in range(0, q_all.shape[0], block):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                losses.append(tr.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block],
+                                             tr.plateau.lr, float(e), num_hard))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"losses": torch.cat(losses), "launches": read_launches(), "rng_words": words}
+
+
+def graph_twins(dev, tr, refresh: bool) -> dict:
+    """``tr`` (graphed) and an eager twin (``graphed = False``) started from
+    one state: the same params and Adam state, tables, operators and
+    layouts, and generator seed. Both run the blocks of epochs 0 and 1
+    (``graph_epochs``: 0 and 1 hard negatives, so two step keys; with
+    ``refresh`` new tables before epoch 1, which the graphed trainer copies
+    into its captured storages). Gates: params, Adam state, losses and the
+    generator's state and next words bitwise equal (else the first leaf that
+    differs and its largest error), the launch counts equal (the graphed
+    trainer's counted by its replays), two step graphs and one embedding
+    graph captured, the graphed embedding pass bitwise equal to the eager
+    one. Then each path's step (epoch 1's first batch) and embedding pass
+    timed: wall per call (host clock, synchronized, 12 calls in turns),
+    device time, kernels and busy share over a profiled window."""
+    from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+    from movie_recommendation_engine_tpu_torch.train import step_graph
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+
+    cfg = tr.cfg
+    pairs0, cfg.train.max_pairs_per_epoch = cfg.train.max_pairs_per_epoch, GRAPH_PAIRS
+    eager = Trainer(cfg, tr.data, logger=MetricsLogger(io.StringIO()), device=dev)
+    eager.graphed = False
+    eager.set_neighborhood_tables(tr.nbr_tables)
+    ops_g, ops_e = (tr.pool_mats, tr.bwd_layouts), (eager.pool_mats, eager.bwd_layouts)
+    rebuilt_equal = all(same_bits(a, b) for a, b in zip(step_graph.tensors(ops_g),
+                                                        step_graph.tensors(ops_e)))
+    check(step_graph.copy_into(ops_e, ops_g), "eager twin: operators of another structure")
+    eager.params, eager.opt_state = copy_state(tr.params, tr.opt_state)
+    for t in (tr, eager):
+        t._reseed(np.array([2024, 12], np.uint32))
+    n_events = len(tr.log.history)
+
+    runs = {"graphed": graph_epochs(tr, (0, 1), refresh),
+            "eager": graph_epochs(eager, (0, 1), refresh)}
+    (g, e) = runs["graphed"], runs["eager"]
+    diff = first_difference(state_leaves(tr), state_leaves(eager))
+    gen_equal = torch.equal(tr.generator.get_state(), eager.generator.get_state())
+    next_words = [t._rng_words().tolist() for t in (tr, eager)]
+    loss_diff = float((g["losses"] - e["losses"]).abs().max())
+    for _ in range(2):          # the embedding graph: warm-up or capture, then a replay
+        tr.movie_embeddings()
+    emb_g, emb_e = tr.movie_embeddings(), eager.movie_embeddings()
+    captures = [{k: v for k, v in ev.items() if k != "time"}
+                for ev in tr.log.history[n_events:] if ev["event"] == "step_graph"]
+    step_keys = {tuple(c["key"]) for c in captures if c["key"][0] == "step"}
+    out = {"rung": step_graph.rung(tr.pool_mats), "steps": int(g["losses"].numel()),
+           "state_first_difference": diff, "losses_bitwise_equal": same_bits(g["losses"],
+                                                                            e["losses"]),
+           "loss_max_abs_diff": loss_diff, "generator_state_equal": gen_equal,
+           "rng_words": g["rng_words"], "rng_words_equal": g["rng_words"] == e["rng_words"],
+           "next_words": next_words, "launches": {"graphed": g["launches"],
+                                                  "eager": e["launches"]},
+           "embed_bitwise_equal": same_bits(emb_g, emb_e),
+           # Reported only: a segment layout's rows past its totals are
+           # unset memory, so a rebuilt gather layout differs there.
+           "operators_rebuilt_bitwise_equal": rebuilt_equal,
+           "graphs_alive": len(tr.graphs.graphs), "captures": captures}
+    what = f"train_graph {out['rung']}"
+    check(diff is None and out["losses_bitwise_equal"] and gen_equal
+          and out["rng_words_equal"] and next_words[0] == next_words[1],
+          f"{what}: graphed and eager differ: {json.dumps(out, default=str)}")
+    check(g["launches"] == e["launches"], f"{what}: launches differ: {out['launches']}")
+    check(len(step_keys) >= 2 and any(c["key"][0] == "embed" for c in captures),
+          f"{what}: expected two step graphs and an embedding graph, captured {captures}")
+    check(out["embed_bitwise_equal"], f"{what}: graphed embedding pass differs from eager "
+          f"(max abs err {float((emb_g - emb_e).abs().max())})")
+
+    q_all, p_all, _, _, num_hard = tr.epoch_batches(1)
+    q, p = q_all[:1], p_all[:1]
+
+    def step(t):
+        return t.train_steps(q, p, t.plateau.lr, 1.0, num_hard)
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    timing = {}
+    for name, fns in (("step", (lambda: step(tr), lambda: step(eager))),
+                      ("embed", (tr.movie_embeddings, eager.movie_embeddings))):
+        walls = {"graphed": [], "eager": []}
+        for _ in range(12):
+            walls["eager"].append(wall(fns[1]))
+            walls["graphed"].append(wall(fns[0]))
+        for path, fn in zip(("graphed", "eager"), fns):
+            med = statistics.median(walls[path])
+            prof = device_profile(fn, calls=10)
+            timing[f"{name}_{path}"] = {
+                "wall_ms_median": med, "wall_ms_min": min(walls[path]),
+                "wall_ms_max": max(walls[path]), "profile": prof,
+                "busy_share_of_median_wall": (prof["device_ms"] or 0.0) / med}
+    out["timing"] = timing
+    out["pool_bytes"] = tr.graphs.pool_bytes
+    cfg.train.max_pairs_per_epoch = pairs0
+    del eager
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_graph_phase(dev, hub_tr) -> dict:
+    """``graph_twins`` on the gather rung with the CUDA kernels (4k,
+    ``gather_impl=pallas``), the default config's dense rung (4k) and
+    ``train_hub``'s ``hubf`` trainer (59k popularity tables, no refresh).
+    Returns the gather rung's launch counts (replays counted)."""
+    from movie_recommendation_engine_tpu_torch import api, default_config
+
+    rungs = {}
+    for name, overrides in (("gather", {"model.pool_impl": "gather",
+                                        "model.gather_impl": "pallas"}),
+                            ("dense", {})):
+        cfg = default_config().override({"data.source": "synthetic", **overrides})
+        eng = api.Engine(cfg, device=dev)
+        eng.trainer.refresh_neighborhoods()
+        rungs[name] = graph_twins(dev, eng.trainer, refresh=True)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    rungs["hubf"] = graph_twins(dev, hub_tr, refresh=False)
+    check(rungs["gather"]["launches"]["graphed"]["gather_pool_bwd_segment"] > 0,
+          "train_graph: the gather rung's graphed steps launched no segment backward")
+    emit("train_graph", torch=torch.__version__, rungs=rungs)
+    return rungs["gather"]["launches"]["graphed"]
+
+
+# ---------------------------------------------------------------------------
 # 8. PPR neighborhoods (walk.strategy=ppr)
 # ---------------------------------------------------------------------------
 
@@ -1939,7 +2140,7 @@ def movielens_fit(dev, cfg):
     tr = eng.trainer
     builds = [{k: v for k, v in e.items() if k != "time"} for e in log.history
               if e["event"].startswith(("hub_pool", "block_", "ingest", "cooc"))]
-    return eng, log, {"init_s": init_s, "fit_s": fit_s, "adam_steps": tr.opt_state.step,
+    return eng, log, {"init_s": init_s, "fit_s": fit_s, "adam_steps": int(tr.opt_state.step),
                       "rung": rung_of(tr.pool_mats), "builds": builds, "launches": launches,
                       "loss": [h["loss"] for h in hist],
                       "val_hit_rate@10": [h.get("val_hit_rate@10") for h in hist]}
@@ -2231,7 +2432,7 @@ def agg_step_vs_cpu(gpu, cpu, q, p) -> dict:
     draws = {"gpu": [StepDraws(d.random, d.hard, keep)],
              "cpu": [StepDraws(d.random.cpu(), d.hard.cpu(), [k.cpu() for k in keep])]}
     cpu.params = to_device(gpu.params, "cpu")
-    cpu.opt_state = optim.AdamState(gpu.opt_state.step, to_device(gpu.opt_state.mu, "cpu"),
+    cpu.opt_state = optim.AdamState(gpu.opt_state.step.cpu(), to_device(gpu.opt_state.mu, "cpu"),
                                     to_device(gpu.opt_state.nu, "cpu"))
     res = {}
     for name, tr in (("gpu", gpu), ("cpu", cpu)):
@@ -2825,6 +3026,10 @@ def main() -> int:
     fwd_hub, bwd_hub, hub_eng, hub_emb = train_hub_phase(dev)
     pool_entry.update(fwd_hub)
     bwd.update(bwd_hub)
+    graphed = train_graph_phase(dev, hub_eng.trainer)
+    pool_entry["launches_train_graph"] = graphed["gather_pool"]
+    bwd.update(launches_train_graph=graphed["gather_pool_bwd"],
+               launches_train_graph_segment=graphed["gather_pool_bwd_segment"])
     ppr_launches = ppr_phase(dev, walk_fit)
     pool_entry["launches_ppr"] = ppr_launches["gather_pool"]   # the build's pushes too
     bwd.update(launches_ppr=ppr_launches["gather_pool_bwd"],

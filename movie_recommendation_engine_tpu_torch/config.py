@@ -5,8 +5,9 @@ that a JAX checkpoint's ``.meta.json`` config loads unchanged. The comments
 below describe the JAX package's measurements; in this package
 ``model.gather_impl="pallas"`` names the CUDA gather kernel
 (``ops/csrc/gather_pool.cu``) and ``"auto"`` resolves to ``"xla"`` (the torch
-gather + einsum formulation), as in the JAX trainer. Mesh fields are kept for
-schema parity; multi-device execution is not ported yet.
+gather + einsum formulation), as in the JAX trainer. The mesh fields drive
+the (data, model) mesh on ``torch.distributed``, one process a rank
+(``parallel/mesh.py``).
 
 Single source of truth replacing the reference's two overlapping config systems
 (module-level constants in ``config.py:1-65`` and per-script argparse flags,

@@ -54,12 +54,15 @@ def batch_hard_triplet_loss(query: torch.Tensor, positive: torch.Tensor,
 
 def curriculum_loss(query: torch.Tensor, positive: torch.Tensor,
                     random_negatives: torch.Tensor,
-                    hard_negatives: torch.Tensor | None, epoch: float,
+                    hard_negatives: torch.Tensor | None, epoch: float | torch.Tensor,
                     margin: float = 0.1, max_epochs: int = 10,
                     hard_negative_factor: float = 2.0) -> torch.Tensor:
     """Base hinge on the random negatives (a 2-D pool is always shared) plus
     ``min(epoch, max_epochs) / max_epochs * hard_negative_factor`` times the
-    hinge on the hard negatives [B, H, D]."""
+    hinge on the hard negatives [B, H, D]. ``epoch`` is a number or a 0-d
+    tensor on the embeddings' device (as JAX's traced epoch: a new epoch
+    changes no captured step); the weight is computed in f32 in JAX's
+    order."""
     if random_negatives.dim() == 2:
         base = shared_pool_max_margin_loss(query, positive, random_negatives, margin)
     else:
@@ -67,7 +70,8 @@ def curriculum_loss(query: torch.Tensor, positive: torch.Tensor,
     if hard_negatives is None:
         return base
     hard = max_margin_loss(query, positive, hard_negatives, margin)
-    hard_weight = min(float(epoch), float(max_epochs)) / max_epochs * hard_negative_factor
+    epoch = torch.as_tensor(epoch, dtype=torch.float32, device=query.device)
+    hard_weight = torch.clamp(epoch, max=float(max_epochs)) / max_epochs * hard_negative_factor
     return base + hard_weight * hard
 
 

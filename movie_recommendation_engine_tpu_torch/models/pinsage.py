@@ -254,8 +254,8 @@ def _dropout(h: torch.Tensor, rate: float, generator: torch.Generator | None = N
     if keep is None:
         keep = torch.rand(h.shape, generator=generator, device=h.device) < 1.0 - rate
     # The scale in h's dtype, as JAX rounds its weak-typed scalar (bf16 0.8
-    # is 0.80078125).
-    scale = torch.tensor(1.0 - rate, dtype=h.dtype, device=h.device)
+    # is 0.80078125); filled on the device, so no copy from the host.
+    scale = torch.full((), 1.0 - rate, dtype=h.dtype, device=h.device)
     return torch.where(keep, h / scale, 0.0)
 
 

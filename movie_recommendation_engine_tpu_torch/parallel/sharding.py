@@ -37,7 +37,7 @@ class ShardedStepConfig(NamedTuple):
     aggregator: str = "importance"
     loss: str = "max_margin"       # max_margin | batch_hard | curriculum | cosine | nce
     margin: float = 0.1
-    epoch: float = 0.0
+    epoch: float | torch.Tensor = 0.0   # a 0-d device tensor in the trainer
     max_epochs: int = 10
     hard_neg_factor: float = 2.0
     nce_temperature: float = 0.1

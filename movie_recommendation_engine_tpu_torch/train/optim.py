@@ -5,8 +5,13 @@ Port of ``movie_recommendation_engine_tpu/train/optim.py``. ``adam_update``
 computes JAX's formula with JAX's constants (betas 0.9 / 0.999, eps 1e-8,
 bias corrections in f32 from one shared step count), as a few multi-tensor
 (``torch._foreach_*``) operations over all leaves. Unlike the JAX function it
-updates the params and moments in place, which saves holding a second copy
-of each; it returns them as JAX's does. ``state_to_jax`` / ``state_from_jax``
+updates the params, the moments and the step count in place, which saves
+holding a second copy of each; it returns them as JAX's does. The step count
+is a 0-d int32 tensor on the params' device, the bias corrections are
+computed from it there, and ``lr`` may be a 0-d f32 tensor there too: no
+number of the update lives on the host, so one update can be captured in a
+CUDA graph and replayed (``train/step_graph.py``), as JAX traces ``step``
+and ``lr`` into its jitted step. ``state_to_jax`` / ``state_from_jax``
 carry the state in JAX's checkpoint layout: ``opt/step`` int32,
 ``opt/mu/<param path>``, ``opt/nu/<param path>``.
 """
@@ -22,32 +27,40 @@ from ..core import tree
 
 
 class AdamState(NamedTuple):
-    step: int         # updates taken so far
+    step: torch.Tensor  # 0-d int32: updates taken so far
     mu: Any           # first-moment tree, the params' structure
     nu: Any           # second-moment tree
 
 
+def _step_count(value: int, device) -> torch.Tensor:
+    return torch.full((), value, dtype=torch.int32, device=device)
+
+
 def adam_init(params: Any) -> AdamState:
-    return AdamState(step=0, mu=tree.map_tree(torch.zeros_like, params),
+    device = tree.leaves(params)[0].device
+    return AdamState(step=_step_count(0, device), mu=tree.map_tree(torch.zeros_like, params),
                      nu=tree.map_tree(torch.zeros_like, params))
 
 
 @torch.no_grad()
-def adam_update(grads: Any, state: AdamState, params: Any, lr: float,
+def adam_update(grads: Any, state: AdamState, params: Any, lr: float | torch.Tensor,
                 b1: float = 0.9, b2: float = 0.999,
                 eps: float = 1e-8) -> tuple[Any, AdamState]:
     """``p - lr * (m / c1) / (sqrt(v / c2) + eps)`` with ``c = 1 - beta ** t``
-    (torch.optim.Adam's defaults), in place; returns (params, state)."""
+    (torch.optim.Adam's defaults), in place; returns (params, state), the
+    same objects. ``lr`` is a float or a 0-d f32 tensor on the params'
+    device; ``t`` is the incremented step count as f32, and ``c1``, ``c2``
+    are computed from it in f32 in JAX's order."""
     p, g = tree.leaves(params), tree.leaves(grads)
     m, v = tree.leaves(state.mu), tree.leaves(state.nu)
-    step = state.step + 1
+    state.step.add_(1)
     torch._foreach_mul_(m, b1)
     torch._foreach_add_(m, g, alpha=1 - b1)
     torch._foreach_mul_(v, b2)
     torch._foreach_addcmul_(v, g, g, value=1 - b2)
-    t = np.float32(step)
-    c1 = float(np.float32(1) - np.float32(b1) ** t)
-    c2 = float(np.float32(1) - np.float32(b2) ** t)
+    t = state.step.to(torch.float32)
+    c1 = 1.0 - torch.pow(b1, t)
+    c2 = 1.0 - torch.pow(b2, t)
     upd = torch._foreach_div(m, c1)
     denom = torch._foreach_div(v, c2)
     torch._foreach_sqrt_(denom)
@@ -55,12 +68,12 @@ def adam_update(grads: Any, state: AdamState, params: Any, lr: float,
     torch._foreach_mul_(upd, lr)
     torch._foreach_div_(upd, denom)
     torch._foreach_sub_(p, upd)
-    return params, AdamState(step, state.mu, state.nu)
+    return params, state
 
 
 def state_to_jax(state: AdamState) -> dict[str, np.ndarray]:
     """The state as checkpoint leaves under JAX's key paths."""
-    flat = {"opt/step": np.asarray(state.step, np.int32)}
+    flat = {"opt/step": np.asarray(int(state.step), np.int32)}
     for name, moments in (("mu", state.mu), ("nu", state.nu)):
         for k, x in tree.flatten(moments).items():
             flat[f"opt/{name}/{k}"] = x.detach().cpu().numpy().astype(np.float32)
@@ -75,7 +88,7 @@ def state_from_jax(flat: dict[str, np.ndarray], device) -> AdamState:
         moments[name] = tree.unflatten({
             k[len(prefix):]: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
             for k, v in flat.items() if k.startswith(prefix)})
-    return AdamState(int(flat["opt/step"]), moments["mu"], moments["nu"])
+    return AdamState(_step_count(int(flat["opt/step"]), device), moments["mu"], moments["nu"])
 
 
 class PlateauState(NamedTuple):

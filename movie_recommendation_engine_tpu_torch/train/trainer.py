@@ -19,12 +19,19 @@ and it, the walk tables and the pool operators hold the rank's rows only
 The gather kernels stay on under a mesh. Only the coordinator writes a
 checkpoint; every rank loads it.
 
-Where JAX scans a jitted block of steps, ``train_steps`` is a Python loop of
-steps on the device. The epoch is still cut into blocks of
+Where JAX scans a jitted block of steps, ``train_steps`` replays a CUDA
+graph of the step once a step (``train/step_graph.py``: one graph per
+``num_hard``, batch size and rung, as JAX compiles once per ``num_hard``),
+and ``movie_embeddings`` one graph of the embedding pass. Steps run eager
+instead, by rule, on the CPU, under a mesh (gloo stages its collectives
+through the host) and when the caller passes the draws; ``graphed = False``
+asks for eager steps on the card too. The epoch is still cut into blocks of
 ``min(8, steps)`` steps, padded to whole blocks by wrap-around, so that the
-port takes as many Adam steps as JAX. Random numbers come from one
-``torch.Generator``; ``train_steps`` takes each step's draws instead
-(``StepDraws``), which is how the tests feed JAX's. Table sampling
+port takes as many Adam steps as JAX. ``lr`` and ``epoch`` reach the step as
+0-d device tensors, filled before each block, and Adam's step count lives on
+the device. Random numbers come from one ``torch.Generator``; ``train_steps``
+takes each step's draws instead (``StepDraws``), which is how the tests feed
+JAX's. Table sampling
 (``refresh_neighborhoods``) is split from the building of the pool operators
 (``set_neighborhood_tables``) so that tables sampled elsewhere can be used.
 """
@@ -58,6 +65,7 @@ from ..parallel import sharding
 from ..sampling import negative, ppr, random_walk as rw
 from ..sampling import sharded_walk
 from . import optim
+from .step_graph import StepGraphs, copy_into, rung, tensors
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -175,6 +183,14 @@ class Trainer:
         self.compute_dtype = _DTYPES[cfg.train.compute_dtype]
         self.opt_state = optim.adam_init(self.params)
         self.plateau = optim.plateau_init(cfg.train.learning_rate)
+        # The step's lr and epoch on the device, filled before each block,
+        # so that a captured step reads the new values.
+        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        self._epoch = torch.zeros((), dtype=torch.float32, device=self.device)
+        # Steps and embedding passes replay CUDA graphs on the card without
+        # a mesh (train/step_graph.py); False runs them eager.
+        self.graphed = self.device.type == "cuda" and self.mesh is None
+        self.graphs = StepGraphs(self.device, self.generator, self.log)
         self.epoch = 0
         self.best_metric = -float("inf")
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
@@ -240,15 +256,30 @@ class Trainer:
         config's rung (``_pool_operators``). With ``gather_impl="pallas"`` it
         also builds the backward kernel's layouts (``full_graph_layouts``).
         Under a row shard the operators are built for the rank's rows and
-        the rank keeps its rows of the tables."""
-        def on_device(x, dtype):
-            return torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
-                                   dtype=dtype, device=self.device)
+        the rank keeps its rows of the tables.
 
+        Captured graphs read the old tables, operators and layouts. Where
+        two sets fit on the card, the new set is copied into the old one's
+        storage when the shapes match, and the graphs stay; else the graphs
+        are dropped and the old set freed before the new one is built."""
+        made = {}      # one tensor per input object: layers may share a table
+
+        def on_device(x, dtype):
+            if id(x) not in made:
+                t = torch.as_tensor(x if torch.is_tensor(x) else np.array(x),
+                                    dtype=dtype, device=self.device)
+                made[id(x)] = t.clone() if t is x else t   # owned: it may be copied into
+            return made[id(x)]
+
+        old = (self.nbr_tables, self.pool_mats, self.bwd_layouts)
+        if not (self.graphs.graphs and self._fits_twice(old)):
+            self.graphs.drop()
+            old = None
         self.nbr_tables = [(on_device(nb, torch.int32), on_device(w, torch.float32))
                            for nb, w in tables]
-        # Drop the old operators before building the new ones: at scale two
-        # sets do not fit on the card together.
+        # Drop the old operators before building the new ones (unless kept
+        # for the graphs above): at scale two sets do not fit on the card
+        # together.
         self.pool_mats = ()
         self.bwd_layouts = None
         pooled = (self.cfg.model.aggregator_type == "importance"
@@ -260,6 +291,20 @@ class Trainer:
             self.nbr_tables = [(nb[rows], w[rows]) for nb, w in self.nbr_tables]
         if pooled and self.gather_impl == "pallas":
             self.bwd_layouts = self.full_graph_layouts()
+        if old is not None:
+            new = (self.nbr_tables, self.pool_mats, self.bwd_layouts)
+            if copy_into(old, new):
+                self.nbr_tables, self.pool_mats, self.bwd_layouts = old
+            else:
+                self.graphs.drop()
+
+    def _fits_twice(self, tables_and_operators) -> bool:
+        """Whether a second set of tables, operators and layouts of this
+        size fits in half the card's free memory."""
+        if self.device.type != "cuda":
+            return True
+        size = sum(t.numel() * t.element_size() for t in tensors(tables_and_operators))
+        return 2 * size <= torch.cuda.mem_get_info(self.device)[0]
 
     def full_graph_layouts(self) -> list:
         """``ops.pool.segment_layout`` of each full-graph layer's gather
@@ -425,8 +470,9 @@ class Trainer:
                 generator=self.generator)
         return StepDraws(rand_negs, hard)
 
-    def step_config(self, epoch: float) -> sharding.ShardedStepConfig:
-        """The step's settings (``parallel.sharding.step_loss``) at ``epoch``."""
+    def step_config(self, epoch) -> sharding.ShardedStepConfig:
+        """The step's settings (``parallel.sharding.step_loss``) at ``epoch``
+        (a number or a 0-d tensor on the device)."""
         cfg = self.cfg
         return sharding.ShardedStepConfig(
             aggregator=cfg.model.aggregator_type, loss=cfg.train.loss, margin=cfg.train.margin,
@@ -436,7 +482,7 @@ class Trainer:
             train_path=cfg.train.train_path)
 
     def loss_and_grads(self, q: torch.Tensor, p: torch.Tensor, draws: StepDraws,
-                       epoch: float) -> tuple[torch.Tensor, Any]:
+                       epoch) -> tuple[torch.Tensor, Any]:
         """The step's loss and its gradient in every parameter (zeros for
         the ones the loss does not read, as JAX's), at ``self.params``; under
         a mesh, of the whole batch (each rank's share summed)."""
@@ -449,24 +495,44 @@ class Trainer:
                 self.world),
             self.params, self.world)
 
+    def step(self, q: torch.Tensor, p: torch.Tensor, num_hard: int,
+             draws: StepDraws | None = None) -> torch.Tensor:
+        """One step at the lr and epoch last filled in by ``train_steps``:
+        the negatives (``draws`` if given, else drawn), the loss and its
+        gradient, and an in-place Adam update of ``self.params``. Returns
+        the loss."""
+        d = draws if draws is not None else self.draw_step(q, num_hard)
+        loss, grads = self.loss_and_grads(q, p, d, self._epoch)
+        optim.adam_update(grads, self.opt_state, self.params, self._lr)
+        return loss
+
+    def graph_inputs(self) -> tuple:
+        """What a captured step or embedding pass reads besides its batch."""
+        return (self.params, self.opt_state, self.x_table, self.nbr_tables, self.pool_mats,
+                self.bwd_layouts, self.graph, self._lr, self._epoch)
+
     def train_steps(self, q_blk, p_blk, lr: float, epoch: float, num_hard: int,
                     draws: list[StepDraws] | None = None) -> torch.Tensor:
         """Steps over the batches ``q_blk``, ``p_blk`` [S, B]: per step the
         negatives (``draws[s]`` if given, else drawn), the loss and its
-        gradient, and an Adam update of ``self.params`` at ``lr``. Returns
-        the [S] f32 losses on the device, without waiting for them."""
+        gradient, and an Adam update of ``self.params`` at ``lr``; replays
+        of the step's CUDA graph where ``graphed`` and no draws are given.
+        Returns the [S] f32 losses on the device, without waiting for them."""
         if self.nbr_tables is None and self.cfg.train.train_path != "mlp":
             self.refresh_neighborhoods()
         q_blk = torch.as_tensor(q_blk, dtype=torch.int32, device=self.device)
         p_blk = torch.as_tensor(p_blk, dtype=torch.int32, device=self.device)
-        step_losses = []
+        self._lr.fill_(lr)
+        self._epoch.fill_(epoch)
+        if self.graphed and draws is None:
+            self.graphs.check(self.graph_inputs(), self.generator)
+            key = ("step", num_hard, int(q_blk.shape[1]), rung(self.pool_mats))
+            return self.graphs.steps(lambda q, p: self.step(q, p, num_hard), q_blk, p_blk, key)
+        losses = torch.empty(q_blk.shape[0], dtype=torch.float32, device=self.device)
         for s in range(q_blk.shape[0]):
-            d = draws[s] if draws is not None else self.draw_step(q_blk[s], num_hard)
-            loss, grads = self.loss_and_grads(q_blk[s], p_blk[s], d, epoch)
-            self.params, self.opt_state = optim.adam_update(grads, self.opt_state,
-                                                            self.params, lr)
-            step_losses.append(loss)
-        return torch.stack(step_losses).float()
+            losses[s] = self.step(q_blk[s], p_blk[s], num_hard,
+                                  None if draws is None else draws[s])
+        return losses
 
     # ---- epoch loop -------------------------------------------------------
 
@@ -492,6 +558,26 @@ class Trainer:
             pairs = np.concatenate([pairs] * reps, axis=0)[: pairs.shape[0] + pad]
         return pairs.reshape(-1, bsz, 2)
 
+    def epoch_batches(self, epoch: int) -> tuple:
+        """The epoch's batches on the device, ``q_all``, ``p_all`` [S, B]
+        int32, cut into blocks of ``block`` = min(8, steps) steps, the step
+        count padded to whole blocks (wrap-around) as JAX's scanned blocks
+        are: the padded steps update the params and are left out of the
+        loss mean. Returns (q_all, p_all, block, real steps, num_hard)."""
+        cfg = self.cfg
+        batches = self._epoch_pairs(np.random.default_rng(cfg.train.seed + 1000 + epoch))
+        num_hard = (negative.curriculum_num_hard(epoch, cfg.train.max_hard_negatives)
+                    if cfg.train.loss in ("curriculum", "nce")
+                    and cfg.train.train_path != "mlp" else 0)
+        s_total = batches.shape[0]
+        block = min(self.steps_per_call, s_total)
+        pad_steps = (-s_total) % block
+        if pad_steps:
+            batches = np.concatenate([batches, batches[:pad_steps]], axis=0)
+        q_all = torch.as_tensor(batches[:, :, 0], dtype=torch.int32, device=self.device)
+        p_all = torch.as_tensor(batches[:, :, 1], dtype=torch.int32, device=self.device)
+        return q_all, p_all, block, s_total, num_hard
+
     def train_epoch(self, epoch: int) -> dict[str, float]:
         cfg = self.cfg
         refresh = cfg.train.refresh_neighborhoods_every
@@ -503,26 +589,12 @@ class Trainer:
             refresh_s = time.perf_counter() - t0
             self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s)
 
-        batches = self._epoch_pairs(np.random.default_rng(cfg.train.seed + 1000 + epoch))
-        num_hard = (negative.curriculum_num_hard(epoch, cfg.train.max_hard_negatives)
-                    if cfg.train.loss in ("curriculum", "nce")
-                    and cfg.train.train_path != "mlp" else 0)
-        # Blocks of min(8, steps) steps, the step count padded to whole
-        # blocks (wrap-around) as JAX's scanned blocks are: the padded steps
-        # update the params and are left out of the loss mean.
-        s_total = batches.shape[0]
-        block = min(self.steps_per_call, s_total)
-        pad_steps = (-s_total) % block
-        if pad_steps:
-            batches = np.concatenate([batches, batches[:pad_steps]], axis=0)
-        q_all = torch.as_tensor(batches[:, :, 0], dtype=torch.int32, device=self.device)
-        p_all = torch.as_tensor(batches[:, :, 1], dtype=torch.int32, device=self.device)
-
+        q_all, p_all, block, s_total, num_hard = self.epoch_batches(epoch)
         step_losses = []
         self._sync()
         t0 = time.perf_counter()
         t_after_first = None
-        for s0 in range(0, batches.shape[0], block):
+        for s0 in range(0, q_all.shape[0], block):
             step_losses.append(self.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block],
                                                 self.plateau.lr, float(epoch), num_hard))
             if t_after_first is None:
@@ -531,8 +603,8 @@ class Trainer:
         all_losses = torch.cat(step_losses).cpu().numpy()[:s_total]
         t_end = time.perf_counter()
 
-        bsz = int(batches.shape[1])
-        n_timed_steps = batches.shape[0] - block
+        bsz = int(q_all.shape[1])
+        n_timed_steps = q_all.shape[0] - block
         timed_s = t_end - t_after_first
         exps = (bsz * n_timed_steps / timed_s if n_timed_steps and timed_s > 0
                 else bsz * block / max(t_after_first - t0, 1e-9))
@@ -552,10 +624,18 @@ class Trainer:
     @torch.no_grad()
     def movie_embeddings(self, params=None) -> torch.Tensor:
         """[num_movies, embed_dim] f32 via the full pooled forward (under a
-        row shard each rank embeds its rows, then all-gathers them)."""
+        row shard each rank embeds its rows, then all-gathers them): a
+        replay of the pass's CUDA graph where ``graphed`` and ``params`` is
+        None or ``self.params``, which the graph reads in place."""
         if self.nbr_tables is None:
             self.refresh_neighborhoods()
-        params = params if params is not None else self.params
+        if self.graphed and (params is None or params is self.params):
+            self.graphs.check(self.graph_inputs(), self.generator)
+            return self.graphs.embed(lambda: self._embed(self.params),
+                                     ("embed", rung(self.pool_mats)))
+        return self._embed(self.params if params is None else params)
+
+    def _embed(self, params) -> torch.Tensor:
         m = self.data.num_movies
         x = self.x_table
         if self.cfg.train.train_path == "mlp" and self.shard is None:
@@ -600,6 +680,9 @@ class Trainer:
         w = np.asarray(words, np.uint32).reshape(-1)
         if w.shape != (2,):
             raise ValueError(f"checkpoint rng must be uint32[2], got shape {w.shape}")
+        # manual_seed resets the generator's state in place (the state the
+        # step graphs registered), so the graphs stay and replay from the
+        # new seed, as eager steps would.
         self.generator.manual_seed((int(w[0]) << 32) | int(w[1]))
 
     def save_checkpoint(self, path: str, tag: str = "last") -> None:
@@ -623,6 +706,7 @@ class Trainer:
         either package."""
         flat = ckpt.load_flat(path)
         meta = ckpt.load_meta(path)
+        self.graphs.drop()
         self.params = ckpt.params_from_jax(flat, self.device)
         self.opt_state = optim.state_from_jax(flat, self.device)
         self._reseed(flat["rng"])

@@ -582,7 +582,7 @@ def test_jax_checkpoint_resumes_in_the_port(ckpt_trainers):
         np.testing.assert_array_equal(tree.flatten(tt.opt_state.mu)[k].numpy(), np.asarray(v))
     for k, v in _flatten(jt.params).items():
         np.testing.assert_array_equal(tree.flatten(tt.params)[k].numpy(), np.asarray(v))
-    before = tt.opt_state.step
+    before = int(tt.opt_state.step)   # the step count is updated in place
     out = tt.fit()
     assert len(out["history"]) == 1 and np.isfinite(out["history"][0]["loss"])
     assert tt.opt_state.step > before
