@@ -107,6 +107,26 @@ Phases, one JSON line each:
    equal with and without rerank, a card-built IVF index copied to the CPU
    answering alike, and a ``BatchingRecommender`` with ``method="ivf"``
    answering threads and HTTP.
+9b. serve_graph — the serving searches as CUDA graphs
+   (``core/graphs.SearchGraphs``) on ``train_hub``'s embeddings: exact, LSH
+   (popcount and ±1, each with and without rerank) and IVF, each built
+   twice (the twin ``graphed = False``, the same planes and k-means rows;
+   the builds bitwise equal). At every server bucket (Q = 1..64, k = the
+   server's search_k 116) and at Q = 256, k = 10: the graphed index's first
+   call (eager), second (capture) and a replay on other queries under
+   ``set_sync_debug_mode("error")`` bitwise equal to the twin's, with equal
+   launch counts; wall per call (host queries, ids copied back), the
+   profiler's device time, kernels and busy share, both ways. The Hamming kernel in a graph at 59k, Q = 1 and 64: its [Q, N]
+   output against the plain version (max abs error 0), the search graph's
+   top-k against the plain distances', its time alone and replayed, its
+   bound, plain version and the ±1 GEMM yardstick. Then a graphed LSH
+   server on the serve corpus (4k) and an IVF server at 59k: every bucket
+   captured at warm-up (one ``search_graph`` event each), requests one at a
+   time bitwise equal to the index's eager answers, a large-exclusion
+   request twice (a pow2 search_k, captured by the worker at its second
+   use), 8 threads x 16 requests and HTTP graphed (answers equal to eager
+   search up to near-ties), then the same load eager; p50 / p99, capture seconds, pool
+   bytes, free device memory beside the hub trainer.
 10. check  — the outputs are finite, unit-norm and of the expected shape, and
    the CUDA engine agrees with the CPU engine (plain versions) on a small
    input given the same params and tables, on the gather config, on a
@@ -306,6 +326,9 @@ def device_profile(fn, calls: int = 20) -> dict:
     return {"wall_ms": wall_ms,
             "device_ms": dev_ms if events else None,
             "kernels_per_call": sum(e.count for e in events) / calls,
+            # kernels alone, without the copies and memsets
+            "kernel_launches_per_call": sum(e.count for e in events if not e.key.startswith(
+                ("Memcpy", "Memset"))) / calls,
             "busy_share": dev_ms / wall_ms if events else None,
             "top": [[e.key[:60], e.self_device_time_total / 1e3 / calls] for e in top]}
 
@@ -568,9 +591,11 @@ def gather_pool_phase(dev, walk, table_rows: int, limit: int, width: int,
 # 3./4. serving
 # ---------------------------------------------------------------------------
 
-def drive_server(srv, num_movies: int, threads: int = 8, per_thread: int = 6) -> list[float]:
+def drive_server(srv, num_movies: int, threads: int = 8, per_thread: int = 6,
+                 answers: list | None = None) -> list[float]:
     """Requests by item and by history from several threads; checks that
-    every answer excludes its query items. Returns client latencies (ms)."""
+    every answer excludes its query items. Returns client latencies (ms);
+    ``answers`` gets each ((kind, item or history, k), answer)."""
     lat, errors = [], []
     lock = threading.Lock()
 
@@ -581,14 +606,17 @@ def drive_server(srv, num_movies: int, threads: int = 8, per_thread: int = 6) ->
                 t0 = time.perf_counter()
                 if r % 2:
                     i = int(rng.integers(num_movies))
-                    out, query = srv.recommend_by_item(i, k=10), {i}
+                    out, query, ask = srv.recommend_by_item(i, k=10), {i}, ("item", i, 10)
                 else:
                     hist = [int(x) for x in rng.choice(num_movies, 3, replace=False)]
                     out, query = srv.recommend_by_history(hist, k=10), set(hist)
+                    ask = ("history", hist, 10)
                 dt = (time.perf_counter() - t0) * 1e3
                 ok = len(out["indices"]) == 10 and not query & set(out["indices"])
                 with lock:
                     lat.append(dt)
+                    if answers is not None:
+                        answers.append((ask, out))
                     if not ok:
                         errors.append(out)
         except Exception as e:  # reported by the check below
@@ -639,7 +667,7 @@ def check_embeddings(emb: np.ndarray, shape, what: str) -> None:
     check(bool(np.allclose(norms, 1.0, atol=1e-2)), f"{what}: norms {norms.min()}..{norms.max()}")
 
 
-def serve_phase(dev) -> tuple[dict, tuple]:
+def serve_phase(dev) -> tuple[dict, tuple, tuple]:
     from movie_recommendation_engine_tpu_torch import api, default_config
     from movie_recommendation_engine_tpu_torch.ops import hamming, pool
     from movie_recommendation_engine_tpu_torch.retrieval.exact import ExactIndex
@@ -714,9 +742,9 @@ def serve_phase(dev) -> tuple[dict, tuple]:
            "num_movies": eng.data.num_movies, "num_edges": eng.trainer.csr.num_edges}
     emit("serve", **out)
     # Layer 0's walk table and the shape of the table it pools, for the
-    # gather-pool timing.
+    # gather-pool timing; the embeddings and data, for serve_graph.
     return launches, (eng.trainer.nbr_tables[0], eng.trainer.table_rows,
-                      eng.trainer.valid_limit, cfg.model.hidden_dim)
+                      eng.trainer.valid_limit, cfg.model.hidden_dim), (emb, eng.data)
 
 
 def serve_default_phase(dev) -> None:
@@ -1964,6 +1992,346 @@ def retrieval_phase(dev, emb: np.ndarray, data) -> dict:
             "ms_59k_q256": timing["lsh"]["ms"], "matmul_form_ms_59k_q256": timing["lsh_pm"]["ms"]}
 
 
+# ---------------------------------------------------------------------------
+# 9b. the serving searches as CUDA graphs
+# ---------------------------------------------------------------------------
+
+GRAPH_FORMS = ("exact", "lsh", "lsh_rerank", "lsh_pm", "lsh_rerank_pm", "ivf")
+
+
+def index_twins(form: str, emb: np.ndarray, cfg, dev) -> tuple:
+    """A graphed index of ``form`` and its eager twin (``graphed = False``),
+    each built on ``emb``; the twin gets the graphed index's hyperplanes
+    and the same k-means initial rows. Fails unless the two builds are
+    bitwise equal."""
+    from movie_recommendation_engine_tpu_torch.retrieval import bench, exact, ivf, lsh
+
+    d = emb.shape[1]
+    init = ivf.init_indices(emb.shape[0], min(cfg.search.ivf_partitions, emb.shape[0]))
+
+    def make(planes=None):
+        if form == "exact":
+            return exact.ExactIndex(d, device=dev)
+        if form == "ivf":
+            return bench.make_index("ivf", d, cfg, device=dev, init_idx=init)
+        return lsh.LSHIndex(d, cfg.search.lsh_bits, cfg.search.lsh_tables,
+                            rerank=100 if "rerank" in form else 0, planes=planes, device=dev,
+                            hamming_impl="matmul" if form.endswith("_pm") else "popcount")
+    graphed = make()
+    eager = make(getattr(graphed, "planes", None))
+    eager.graphed = False
+    x = torch.as_tensor(emb, device=dev)
+    for index in (graphed, eager):
+        index.build(x)
+    for name in ("_emb", "_sqnorm", "_sigs", "_sigs_pm", "_norm2", "_perm", "_offsets",
+                 "_centroids"):
+        a, b = getattr(graphed, name, None), getattr(eager, name, None)
+        check((a is None) == (b is None) and (a is None or same_bits(a, b)),
+              f"serve_graph {form}: two builds differ in {name}")
+    check(graphed.graphed, f"serve_graph {form}: not graphed on the card")
+    return graphed, eager
+
+
+def first_difference_at(got, ref) -> dict | None:
+    """The first output and position where two (distances, ids) differ in
+    their bits, else None."""
+    for j, name in ((1, "ids"), (0, "distances")):
+        a, b = got[j], ref[j]
+        if not same_bits(a, b):
+            bits = [x.view(torch.int32) if x.dtype == torch.float32 else x for x in (a, b)]
+            pos = tuple(torch.nonzero(bits[0] != bits[1])[0].tolist())
+            return {"output": name, "position": list(pos), "graphed": float(a[pos]),
+                    "eager": float(b[pos])}
+    return None
+
+
+def wall_ms(fn, calls: int = 10) -> float:
+    """Median host wall (ms) of one call that ends on the host."""
+    walls = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def graph_counts(before: dict | None = None) -> dict:
+    """The wrappers' launch counts, less ``before``'s (the nonzero ones)."""
+    from movie_recommendation_engine_tpu_torch.core import graphs
+
+    now = dict(zip(graphs.COUNTER_NAMES, graphs.read_counts()))
+    return now if before is None else {n: c - before[n] for n, c in now.items() if c - before[n]}
+
+
+def graph_buckets(form: str, graphed, eager, emb: np.ndarray, buckets: list, sk: int) -> dict:
+    """At every server bucket (k = the server's search_k) and at Q = 256
+    (k = 10): the graphed index's first call (eager), second (capture,
+    replay) and a replay on other queries, given on the host as the server
+    gives them, under ``set_sync_debug_mode("error")``, each bitwise equal
+    to the eager twin's, with the same launch counts; then both timed on
+    host queries with the ids copied to the host, as the server calls a
+    search (``wall_ms``, ``device_profile``). A profiler window must record
+    at least the graph's kernel nodes (both ways run those kernels); one
+    that falls short three times gives no device time, busy share or
+    kernel count, and says so under ``unresolved``."""
+    rng = np.random.default_rng(7)
+    dev = graphed.device
+    out = {}
+    for q_rows, k in [(b, sk) for b in buckets] + [(256, 10)]:
+        rows = rng.choice(emb.shape[0], 2 * q_rows, replace=False)
+        q_np, q2_np = emb[rows[:q_rows]], emb[rows[q_rows:]]
+        q, q2 = (torch.as_tensor(x, device=dev) for x in (q_np, q2_np))
+        before = graph_counts()
+        ref = [eager.search(x, k) for x in (q, q, q2)]
+        torch.cuda.synchronize()
+        eager_counts = graph_counts(before)
+        before = graph_counts()
+        got = [graphed.search(q, k), graphed.search(q, k)]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got.append(graphed.search(q2_np, k))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        graphed_counts = graph_counts(before)
+        for call, (a, b) in enumerate(zip(got, ref)):
+            diff = first_difference_at(a, b)
+            check(diff is None, f"serve_graph {form} Q={q_rows} k={k} call {call}: graphed "
+                                f"differs from eager: {diff}")
+        check(graphed_counts == eager_counts,
+              f"serve_graph {form} Q={q_rows}: launches {graphed_counts} graphed, "
+              f"{eager_counts} eager")
+        nodes = [e["kernels"] for e in graphed.graphs.events if e["key"][1:3] == [q_rows, k]][-1]
+        row = {"k": k, "launches_3_calls": graphed_counts, "graph_kernel_nodes": nodes}
+        for mode, index in (("eager", eager), ("graphed", graphed)):
+            def call(index=index):
+                return index.search(q_np, k)[1].cpu()
+            for _ in range(3):          # a window that lost device events is taken again
+                prof = device_profile(call, calls=10)
+                if prof["device_ms"] is not None and prof["kernel_launches_per_call"] >= nodes:
+                    break
+            row[mode] = {"wall_ms": wall_ms(call), "profile_wall_ms": prof["wall_ms"]}
+            if prof["device_ms"] is not None and prof["kernel_launches_per_call"] >= nodes:
+                row[mode].update({x: prof[x] for x in ("device_ms", "kernels_per_call",
+                                                       "kernel_launches_per_call",
+                                                       "busy_share")}, top=prof["top"][:3])
+            else:
+                row[mode].update(device_ms=None, kernels_per_call=None, busy_share=None,
+                                 unresolved=f"{prof['kernel_launches_per_call']} kernels a "
+                                            f"call recorded, {nodes} launched")
+        out[f"q{q_rows}"] = row
+    return out
+
+
+def hamming_in_graph(dev, lsh_index, pm_index, sk: int, sm_clock_mhz: float) -> dict:
+    """The Hamming kernel of the popcount search at 59k inside a CUDA graph:
+    the graph's [Q, N] distances of the queries' signatures against
+    ``hamming_distance_plain`` (max abs error 0), and the popcount search's
+    replayed top-k against the plain distances' ``smallest_k``; the
+    kernel's device time alone and replayed in its graph, its bound, its
+    plain version and the ±1 ``torch.bmm`` + ``amax`` yardstick, at the
+    server buckets Q = 1 and 64."""
+    from movie_recommendation_engine_tpu_torch.core import graphs, roofline
+    from movie_recommendation_engine_tpu_torch.ops import hamming
+
+    t, w = lsh_index.num_tables, lsh_index.num_bits // 32
+    sigs = lsh_index._sigs.reshape(-1, t * w)
+    n = sigs.shape[0]
+    rows = torch.as_tensor(np.random.default_rng(8).choice(n, 64, replace=False), device=dev)
+    cache = graphs.GraphCache(dev, None, "hamming_graph")
+    out = {}
+    for q_rows in (1, 64):
+        q = lsh_index._emb[rows[:q_rows]]
+        qsig = lsh_index._signatures(q).reshape(q_rows, t * w)
+        g = cache.capture(("hamming", q_rows),
+                          lambda s: hamming.hamming_distance(s, sigs, t, w), (qsig,))
+        cache.replay(g)
+        plain = hamming.hamming_distance_plain(qsig, sigs, t, w)
+        err = int((g.output - plain).abs().max().item())
+        check(err == 0, f"hamming in a graph, 59k Q={q_rows}: max abs err {err}")
+        for _ in range(2):              # the search graph of this key: replays
+            d, i = lsh_index.search(q, sk)
+        pd, pi = hamming.smallest_k(plain, sk)
+        check(torch.equal(i, pi) and torch.equal(d, pd),
+              f"popcount search graph, 59k Q={q_rows}: top-k differs from the plain distances'")
+        kern = timed(lambda: hamming.hamming_distance(qsig, sigs, t, w))
+        replay = cuda_ms(lambda: g.graph.replay())
+        plain_t = cuda_ms(lambda: hamming.hamming_distance_plain(qsig, sigs, t, w),
+                          iters=2, reps=3)
+        q_pm = torch.where(pm_index._signs(q).permute(1, 0, 2), 1.0, -1.0).to(torch.bfloat16)
+        s_pm = pm_index._sigs_pm
+        lib_dist = (w * 32 - torch.bmm(q_pm, s_pm.transpose(1, 2)).float().amax(0)) / 2
+        check(torch.equal(lib_dist.int(), plain), "±1 Hamming yardstick disagrees at 59k")
+        lib = timed(lambda: torch.bmm(q_pm, s_pm.transpose(1, 2)).amax(0))
+        bound = roofline.hamming_bound(q_rows, n, t, w, sm_clock_mhz)
+        out[f"q{q_rows}"] = {"max_abs_err": err, "ms": kern["ms"],
+                             "profiler_ms": kern["profiler_ms"], "host_us": kern["host_us"],
+                             "graph_replay_ms": replay["ms"], "plain_ms": plain_t["ms"],
+                             "library_ms": lib["ms"], "bound_ms": bound["ms"],
+                             "bound_by": bound["by"], "bound_route": bound["route"],
+                             "bound_share": bound["ms"] / kern["ms"],
+                             "launches_a_replay": g.counts[-1]}
+    return out
+
+
+def server_check(srv, emb: np.ndarray, answers: list, exact: bool) -> int:
+    """Every recorded answer against the server's own index run eager on
+    the lone query, the exclusions applied as the server applies them:
+    equal bit for bit (``exact``: requests sent one at a time, so each ran
+    alone in bucket 1), else equal ids but at near-ties (1e-5: in a batch
+    of other rows a GEMM may round a distance otherwise). Returns the
+    near-tie positions."""
+    from movie_recommendation_engine_tpu_torch.retrieval.server import _next_pow2
+
+    index = srv.index
+    was, index.graphed = index.graphed, False
+    ties = 0
+    try:
+        for (kind, arg, k), got in answers:
+            if kind == "item":
+                q, excl = emb[arg], [arg]
+            else:
+                q = emb[arg].mean(axis=0)
+                q /= max(float(np.linalg.norm(q)), 1e-12)
+                excl = list(arg)
+            need = k + len(excl)
+            sk = (srv._search_k if need <= srv._search_k
+                  else min(_next_pow2(need), srv.ntotal))
+            d, i = (x.cpu().numpy()[0] for x in index.search(q[None], sk))
+            keep = ~np.isin(i, excl) & (i >= 0)
+            ref_i, ref_d = i[keep][:k], d[keep][:k]
+            got_i = np.asarray(got["indices"])
+            got_d = -np.asarray(got["scores"], np.float32)
+            if exact:
+                check(np.array_equal(got_i, ref_i) and np.array_equal(got_d, ref_d),
+                      f"{srv.method} server: {kind} answered {got_i} / {got_d}, "
+                      f"eager {ref_i} / {ref_d}")
+            else:
+                ties += same_ids(got_d[None], got_i[None], ref_d[None], ref_i[None], 1e-5)
+    finally:
+        index.graphed = was
+    return ties
+
+
+def graphed_server(emb: np.ndarray, data, method: str, cfg, dev) -> dict:
+    """A ``BatchingRecommender`` on ``emb``: its warm-up must capture every
+    bucket at the baseline ``search_k`` and log each capture; requests one
+    at a time, two of them overflowing the exclusion headroom (a pow2
+    ``search_k``: eager at its first use, captured by the worker at its
+    second), each bitwise equal to the index's eager answer;
+    ``drive_server`` and ``http_roundtrip`` on the graphed index, answers
+    checked against eager search; then the same load on the index eager."""
+    from movie_recommendation_engine_tpu_torch.ops import hamming
+    from movie_recommendation_engine_tpu_torch.retrieval.server import BatchingRecommender
+
+    t0 = time.perf_counter()
+    srv = BatchingRecommender(emb, method=method, cfg=cfg, max_batch=cfg.serve.max_batch,
+                              max_wait_ms=cfg.serve.max_wait_ms, max_k=cfg.serve.max_k,
+                              device=dev)
+    start_s = time.perf_counter() - t0
+    index = srv.index
+    try:
+        warm = list(index.graphs.events)
+        want = {(b, srv._search_k) for b in srv._bucket_sizes}
+        check({tuple(e["key"][1:3]) for e in warm} == want and len(warm) == len(want),
+              f"{method} server: warm-up captured {[e['key'] for e in warm]}")
+        n = emb.shape[0]
+        big = [int(x) for x in np.random.default_rng(9).choice(n, srv._search_k + 4,
+                                                              replace=False)]
+        asks = [("item", 0, 10), ("item", 5, 10), ("item", n - 1, 10), ("history", big, 10),
+                ("history", big, 10), ("history", [3, 4, 5], 10)]
+        answers = [((kind, arg, k), srv.recommend_by_item(arg, k=k) if kind == "item"
+                    else srv.recommend_by_history(arg, k=k)) for kind, arg, k in asks]
+        lazy = index.graphs.events[len(warm):]
+        check(len(lazy) == 1 and lazy[0]["key"][2] > srv._search_k,
+              f"{method} server: the large-exclusion key was not captured once: "
+              f"{[e['key'] for e in lazy]}")
+        server_check(srv, emb, answers, exact=True)
+        load = {}
+        for mode in ("graphed", "eager"):
+            index.graphed = mode == "graphed"
+            srv.reset_stats()
+            ham0 = hamming.LAUNCHES
+            got = []
+            lat = drive_server(srv, n, per_thread=16, answers=got)
+            http = http_roundtrip(srv, data) if mode == "graphed" else None
+            stats = srv.stats()
+            load[mode] = {"requests": stats["num_requests"], "batches": stats["num_batches"],
+                          "mean_batch": stats["mean_batch_size"],
+                          "latency_ms_p50": stats["latency_ms_p50"],
+                          "latency_ms_p99": stats["latency_ms_p99"],
+                          "client_ms_p50": float(np.percentile(lat, 50)),
+                          "client_ms_p99": float(np.percentile(lat, 99)),
+                          "hamming_launches": hamming.LAUNCHES - ham0}
+            if mode == "graphed":
+                load[mode]["http"] = http
+                load[mode]["near_tie_positions"] = server_check(srv, emb, got, exact=False)
+        index.graphed = True
+        free, total = torch.cuda.mem_get_info()
+        return {"method": method, "rows": n, "start_s": start_s,
+                "captures": [{k: e[k] for k in ("key", "kernels", "capture_seconds",
+                                                "pool_bytes_added")} for e in warm + lazy],
+                "pool_bytes": index.graphs.pool_bytes, "load": load,
+                "device_memory": {"reserved": torch.cuda.memory_reserved(),
+                                  "free": free, "total": total}}
+    finally:
+        srv.close()
+
+
+def serve_graph_phase(dev, emb: np.ndarray, data, serve_corpus: tuple,
+                      sm_clock_mhz: float) -> dict:
+    """The serving searches as CUDA graphs (``core/graphs.SearchGraphs``) on
+    ``train_hub``'s 59,393 x 128 embeddings and the serve phase's 4k
+    corpus: every index form and its eager twin (``index_twins``) at every
+    server bucket and at Q = 256 (``graph_buckets``), the Hamming kernel
+    inside the search graph (``hamming_in_graph``), and graphed servers for
+    LSH at 4k and IVF at 59k (``graphed_server``). Returns the entries of
+    the ``kernels`` line's Hamming row."""
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.retrieval.server import _buckets
+
+    cfg = default_config()
+    buckets = _buckets(cfg.serve.max_batch)
+    sk = min(cfg.serve.max_k + 16, emb.shape[0])     # the server's baseline search_k
+    summary, twins, ham_launches = {}, {}, 0
+    for form in GRAPH_FORMS:
+        t0 = time.perf_counter()
+        graphed, eager = index_twins(form, emb, cfg, dev)
+        build_s = time.perf_counter() - t0
+        by_q = graph_buckets(form, graphed, eager, emb, buckets, sk)
+        ham_launches += sum(r["launches_3_calls"].get("hamming_distance", 0)
+                            for r in by_q.values())
+        emit("serve_graph_form", form=form, build_s_both=build_s, buckets=by_q,
+             captures=[{k: e[k] for k in ("key", "kernels", "capture_seconds",
+                                          "pool_bytes_added")} for e in graphed.graphs.events],
+             pool_bytes=graphed.graphs.pool_bytes)
+        summary[form] = {q: {m: {x: row[m][x] for x in ("wall_ms", "device_ms", "busy_share")}
+                             for m in ("eager", "graphed")} for q, row in by_q.items()}
+        summary[form]["pool_bytes"] = graphed.graphs.pool_bytes
+        twins[form] = graphed
+    ham = hamming_in_graph(dev, twins["lsh"], twins["lsh_pm"], sk, sm_clock_mhz)
+    del twins
+    gc.collect()
+    torch.cuda.empty_cache()
+    servers = {"lsh_4k": graphed_server(*serve_corpus, "lsh", cfg, dev)}
+    emit("serve_graph_server", **servers["lsh_4k"])
+    servers["ivf_59k"] = graphed_server(emb, data, "ivf", cfg, dev)
+    emit("serve_graph_server", **servers["ivf_59k"])
+    emit("serve_graph", corpus={"rows": emb.shape[0], "dim": emb.shape[1]},
+         buckets=buckets, search_k=sk,
+         hamming_59k=ham, summary=summary,
+         servers={name: {m: {x: v["load"][m][x] for x in ("latency_ms_p50", "latency_ms_p99")}
+                         for m in ("graphed", "eager")} for name, v in servers.items()})
+    entry = {"launches_serve_graph": ham_launches
+             + servers["lsh_4k"]["load"]["graphed"]["hamming_launches"]}
+    for q in ("q1", "q64"):
+        for field in ("ms", "graph_replay_ms", "bound_ms", "plain_ms", "library_ms"):
+            entry[f"{field}_59k_{q}"] = ham[q][field]
+    return entry
+
+
 def check_phase(dev) -> None:
     """The CUDA engine against the CPU engine (plain versions) on a small
     input with the same params and tables, float32 compute: the gather
@@ -3017,7 +3385,7 @@ def main() -> int:
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
     gather_err, ham = kernel_phase(dev, float(clock))
-    launches, serving = serve_phase(dev)
+    launches, serving, serve_corpus = serve_phase(dev)
     pool_entry = gather_pool_phase(dev, *serving, gather_err)
     serve_default_phase(dev)
     bwd, train_launches, walk_fit = train_phase(dev)
@@ -3043,6 +3411,7 @@ def main() -> int:
                       library_ms_ppr_push_59k=at_scale["push"]["library_cusparse"]["ms"])
     ham["launches"] = launches["hamming_distance"]
     ham.update(retrieval_phase(dev, hub_emb, hub_eng.data))
+    ham.update(serve_graph_phase(dev, hub_emb, hub_eng.data, serve_corpus, float(clock)))
     hub_data = hub_eng.data
     del hub_eng
     gc.collect()

@@ -17,6 +17,12 @@ partitions, nprobe = min(partitions, 20)):
   exact L2, merge into a running top-k. The peak transient is one probe's
   block.
 
+JAX runs the whole search (coarse top-k, the ``nprobe`` probes as one
+``lax.scan``, the id mapping) as one jitted ``_ivf_search`` program per
+query rows and ``k``; on ``cuda`` it is one CUDA graph per (query rows,
+``k``, ``nprobe``, budget), captured at the key's second call
+(``core/graphs.SearchGraphs``).
+
 Ranks go through ``core.ranking.top_k``, so the lower position comes first
 among equal distances (``jax.lax.top_k``'s order). The initial centroids are rows
 ``init_idx`` when given, else a draw from a ``torch.Generator`` seeded with
@@ -25,10 +31,13 @@ among equal distances (``jax.lax.top_k``'s order). The initial centroids are row
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.graphs import SearchGraphs
 from ..core.ranking import top_k
 
 
@@ -117,7 +126,8 @@ class WeakANDIndex:
     ``ceil(balance_factor * N / P)`` rows (0 disables balancing);
     ``candidates_factor`` > 0 bounds each probed list's scan to
     ``k * candidates_factor`` rows. ``init_idx`` gives k-means' initial
-    rows."""
+    rows. ``graphed`` (on by default on ``cuda``) runs the search as CUDA
+    graphs."""
 
     def __init__(self, dim: int, num_partitions: int = 100, candidates_factor: int = 0,
                  nprobe: int = 20, seed: int = 0, balance_factor: float = 4.0,
@@ -136,12 +146,15 @@ class WeakANDIndex:
         self._offsets: torch.Tensor | None = None   # [P+1] list offsets
         self._centroids: torch.Tensor | None = None
         self._max_list = 0
+        self.graphed = self.device.type == "cuda"
+        self.graphs = SearchGraphs(self.device)
 
     @property
     def ntotal(self) -> int:
         return 0 if self._emb is None else int(self._emb.shape[0])
 
     def build(self, embeddings) -> None:
+        self.graphs.drop()
         x = torch.as_tensor(embeddings, dtype=torch.float32, device=self.device)
         n = x.shape[0]
         p = min(self.num_partitions, n)
@@ -170,12 +183,15 @@ class WeakANDIndex:
     def search(self, queries, k: int = 10):
         """(squared L2 distances [Q, k] ascending, original ids [Q, k]);
         missing results are ``inf`` / -1."""
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         budget = max(self._max_list, 1)
         if self.candidates_factor:
             budget = min(budget, max(k * self.candidates_factor, k))
-        return ivf_search(q, self._emb, self._norm2, self._centroids, self._offsets,
-                          self._perm, self.nprobe, budget, k)
+        fn = partial(ivf_search, emb=self._emb, norm2=self._norm2,
+                     centroids=self._centroids, offsets=self._offsets, perm=self._perm,
+                     nprobe=self.nprobe, budget=budget, k=k)
+        reads = (self._emb, self._norm2, self._centroids, self._offsets, self._perm)
+        return self.graphs.search(("ivf", k, self.nprobe, budget), fn, queries, reads,
+                                  self.graphed)
 
 
 def ivf_search(q: torch.Tensor, emb: torch.Tensor, norm2: torch.Tensor,

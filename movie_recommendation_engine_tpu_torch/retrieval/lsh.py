@@ -16,16 +16,25 @@ Port of ``movie_recommendation_engine_tpu/retrieval/lsh.py`` (replaces FAISS
 
 The hyperplanes are drawn from a ``torch.Generator`` seeded with ``seed``
 (not JAX's numbers); ``planes=`` injects given ones.
+
+JAX jits each form as one program per query rows and ``k``
+(``_lsh_search_matmul[_rerank]``, ``_hamming_topk``, ``_exact_rerank``); on
+``cuda`` each form's search is one CUDA graph per (form, shortlist, query
+rows, ``k``), captured at the key's second call (``core/graphs.
+SearchGraphs``): the query signatures, the Hamming kernel (popcount form)
+or the 16 ±1 GEMMs, the tie-ordered top-k and the rerank.
 """
 
 from __future__ import annotations
 
 import os
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.graphs import SearchGraphs
 from ..core.ranking import top_k
 from ..ops.hamming import hamming_topk, smallest_k
 from ..ops.hub_pool import _mm_f32
@@ -42,7 +51,8 @@ def _pack_bits(signs: torch.Tensor) -> torch.Tensor:
 
 
 class LSHIndex:
-    """build(embeddings) / search(queries, k), on ``device``."""
+    """build(embeddings) / search(queries, k), on ``device``; ``graphed``
+    (on by default on ``cuda``) runs the search as CUDA graphs."""
 
     def __init__(self, dim: int, num_bits: int = 256, num_tables: int = 16,
                  seed: int = 0, rerank: int = 0,
@@ -78,6 +88,8 @@ class LSHIndex:
         self._sigs_pm: torch.Tensor | None = None   # [T, N, B] ±1 bf16 (matmul form)
         self._emb: torch.Tensor | None = None
         self._sqnorm: torch.Tensor | None = None
+        self.graphed = self.device.type == "cuda"
+        self.graphs = SearchGraphs(self.device)
 
     @property
     def ntotal(self) -> int:
@@ -102,6 +114,7 @@ class LSHIndex:
         return torch.cat(out)
 
     def build(self, embeddings) -> None:
+        self.graphs.drop()
         x = torch.as_tensor(embeddings, dtype=torch.float32, device=self.device)
         self._sigs = self._signatures(x)
         # The ±1 form holds 16x the packed bytes: built only when used.
@@ -113,20 +126,24 @@ class LSHIndex:
         """(distances [Q, k], indices [Q, k]), ascending. Without rerank the
         distances are min-table Hamming distances; with rerank they are the
         squared L2 distances of the re-scored shortlist."""
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
         c = 0 if self.rerank <= 0 else min(max(self.rerank, k), self.ntotal)
+        if self.hamming_impl == "matmul" and self._sigs_pm is None:
+            self._sigs_pm = _unpack_pm(self._sigs)   # built before the form was switched
+        reads = (self._planes_flat, self._emb, self._sqnorm,
+                 self._sigs_pm if self.hamming_impl == "matmul" else self._sigs)
+        return self.graphs.search((f"lsh_{self.hamming_impl}", k, c),
+                                  partial(self._search, k=k, c=c), queries, reads,
+                                  self.graphed)
+
+    def _search(self, q: torch.Tensor, k: int, c: int):
         if self.hamming_impl == "matmul":
-            if self._sigs_pm is None:      # built before the form was switched
-                self._sigs_pm = _unpack_pm(self._sigs)
             dist = (self.num_bits - _best_table_ip(self._signs(q), self._sigs_pm)) * 0.5
             d, i = smallest_k(dist.to(torch.int32), max(c, k))
-            if c > 0:
-                return _exact_rerank(q, self._emb, self._sqnorm, i, k)
-            return d, i
-        tw = self.num_tables * (self.num_bits // 32)
-        qsig = self._signatures(q).reshape(q.shape[0], tw)
-        d, i = hamming_topk(qsig, self._sigs.reshape(-1, tw), max(c, k),
-                            self.num_tables, self.num_bits // 32)
+        else:
+            tw = self.num_tables * (self.num_bits // 32)
+            qsig = self._signatures(q).reshape(q.shape[0], tw)
+            d, i = hamming_topk(qsig, self._sigs.reshape(-1, tw), max(c, k),
+                                self.num_tables, self.num_bits // 32)
         if c > 0:
             return _exact_rerank(q, self._emb, self._sqnorm, i, k)
         return d, i

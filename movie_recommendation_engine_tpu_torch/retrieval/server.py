@@ -12,8 +12,15 @@ Design:
   launch and host-sync cost over the requests of a batch.
 - Batches are padded up to a fixed set of **bucket sizes** (powers of two up
   to ``max_batch``), and ``k`` is fixed per server (``max_k`` + exclusion
-  headroom) and sliced per request, so the searches run a handful of shapes
-  that the warm-up has already run once.
+  headroom) and sliced per request, so the searches run a handful of shapes.
+  Where JAX's server compiles each bucket before it takes traffic, this one
+  captures each bucket's CUDA graph (an index with ``graphed`` set: every
+  single-device index on ``cuda``): the warm-up searches each bucket twice,
+  the first call eager, the second captured; requests replay. A batch whose
+  exclusions need a larger pow2 ``search_k`` runs eager on that key's first
+  use and is captured at its second. Each capture logs ``search_graph`` (a
+  ``MetricsLogger`` on stdout, as the trainer's) and is kept on
+  ``index.graphs.events``.
 
 Query forms:
 - by item: embedding row of ``movie_idx`` (self excluded from results);
@@ -33,6 +40,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..core.logging import MetricsLogger
 from .bench import make_index
 
 
@@ -87,12 +95,14 @@ class BatchingRecommender:
 
     Construct with the item embedding matrix, then ``recommend_by_item`` /
     ``recommend_by_history`` / ``recommend_by_vector`` from any thread.
+    ``planes`` / ``init_idx`` inject LSH hyperplanes and IVF k-means' initial
+    rows (``make_index``).
     """
 
     def __init__(self, embeddings: np.ndarray, method: str = "exact",
                  cfg=None, max_batch: int = 64, max_wait_ms: float = 2.0,
                  max_k: int = 100, exclusion_headroom: int = 16,
-                 warmup: bool = True, device=None, planes=None):
+                 warmup: bool = True, device=None, planes=None, init_idx=None):
         self.emb = np.asarray(embeddings, dtype=np.float32)
         self.dim = int(self.emb.shape[1])
         self.ntotal = int(self.emb.shape[0])
@@ -106,8 +116,10 @@ class BatchingRecommender:
         self._bucket_sizes = _buckets(self.max_batch)
 
         self.index = make_index(method, self.dim, cfg, device=device,
-                                planes=planes)
+                                planes=planes, init_idx=init_idx)
         self.index.build(self.emb)
+        if self.index.graphed:
+            self.index.graphs.log = MetricsLogger()
         self.method = method
 
         self._queue: list[_Request] = []
@@ -116,13 +128,15 @@ class BatchingRecommender:
         self._stats = ServerStats()
         self._closed = False
         if warmup:
-            # Run every batch bucket once at the baseline search_k BEFORE
-            # accepting traffic, so that one-time costs (kernel build and
-            # load, allocator growth) stay out of request latencies.
+            # Run every batch bucket at the baseline search_k BEFORE accepting
+            # traffic, so that one-time costs (kernel build and load,
+            # allocator growth, graph capture) stay out of request latencies:
+            # once, and on a graphed index a second time, which captures.
             z = np.zeros((1, self.dim), np.float32)
             for b in self._bucket_sizes:
-                d, i = self.index.search(np.repeat(z, b, axis=0), k=self._search_k)
-                d.cpu(), i.cpu()
+                for _ in range(2 if self.index.graphed else 1):
+                    d, i = self.index.search(np.repeat(z, b, axis=0), k=self._search_k)
+                    d.cpu(), i.cpu()
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 

@@ -100,6 +100,10 @@ class ShardedExactIndex:
     over it unchanged. ``mesh`` (its ``axis``) names the group; without one,
     every rank of the process group, or this process alone."""
 
+    # Eager by rule: the search runs collectives, which gloo stages through
+    # the host (nothing a CUDA graph can capture); no capture under NCCL yet.
+    graphed = False
+
     def __init__(self, dim: int, mesh=None, axis: str = "model", device=None):
         self.dim = dim
         self.group = _group(mesh, axis)
@@ -224,6 +228,10 @@ class ShardedIVFIndex:
     A rank holds about ``N / S`` rows plus one list's padding, and the
     replicated [P, D] centroids. ``init_idx`` gives k-means' initial rows
     (default ``ivf.init_indices``)."""
+
+    # Eager by rule: the search runs collectives, which gloo stages through
+    # the host (nothing a CUDA graph can capture); no capture under NCCL yet.
+    graphed = False
 
     def __init__(self, dim: int, mesh=None, axis: str = "model", num_partitions: int = 100,
                  candidates_factor: int = 0, nprobe: int = 20, seed: int = 0,

@@ -34,36 +34,22 @@ that assigned new params) or the generator object changed. A reseed keeps
 them: ``manual_seed`` resets the registered generator state in place, and
 the next replay draws from the new seed as an eager step would.
 
-The kernel wrappers count launches on the host (``ops.pool.LAUNCHES`` and
-the others). A capture runs the wrappers once and launches nothing, so
-``StepGraphs`` takes back what the capture counted and adds it on every
-replay: the counts stay launches.
+The capture, the replay, the shared pool and the launch accounting (a
+replay adds what its capture counted, so the wrappers' counts stay
+launches) are ``core/graphs.GraphCache``'s, shared with the indexes'
+search graphs.
 """
 
 from __future__ import annotations
 
-import ctypes
-import time
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable
 
 import torch
 
-from ..ops import block_sparse, hamming, hub_pool, pool
+from ..core.graphs import Captured, GraphCache, read_counts, tensors
+from ..ops import block_sparse, hub_pool
 
-# The wrappers' launch counters: (module, attribute).
-COUNTERS = ((pool, "LAUNCHES"), (pool, "BWD_LAUNCHES"), (pool, "SEGMENT_LAUNCHES"),
-            (pool, "PLAN_LAUNCHES"), (hamming, "LAUNCHES"))
-_COUNTER_NAMES = ("gather_pool", "gather_pool_bwd", "gather_pool_bwd_segment",
-                  "segment_plan", "hamming_distance")
-
-
-def read_counts() -> tuple[int, ...]:
-    return tuple(getattr(m, a) for m, a in COUNTERS)
-
-
-def _set_counts(values) -> None:
-    for (m, a), v in zip(COUNTERS, values):
-        setattr(m, a, v)
+__all__ = ["Captured", "StepGraphs", "copy_into", "read_counts", "rung", "tensors"]
 
 
 def rung(pool_mats) -> str:
@@ -73,17 +59,6 @@ def rung(pool_mats) -> str:
              else "block" if isinstance(pm, block_sparse.BlockPool) else "dense"
              for pm in pool_mats]
     return ",".join(words) or "gather"
-
-
-def tensors(obj: Any) -> list[torch.Tensor]:
-    """Every tensor in nested dicts, lists and tuples (named tuples too)."""
-    if torch.is_tensor(obj):
-        return [obj]
-    if isinstance(obj, dict):
-        obj = [obj[k] for k in sorted(obj)]
-    if isinstance(obj, (list, tuple)):
-        return [t for x in obj for t in tensors(x)]
-    return []
 
 
 def _same_structure(a: Any, b: Any) -> bool:
@@ -112,63 +87,24 @@ def copy_into(dst: Any, src: Any) -> bool:
     return True
 
 
-def _kernel_nodes(raw_graph: int) -> tuple[int, int]:
-    """(kernel nodes, all nodes) of a captured ``cudaGraph_t``, read with
-    libcuda's ``cuGraphGetNodes`` and ``cuGraphNodeGetType``."""
-    cuda = ctypes.CDLL("libcuda.so.1")
-    graph = ctypes.c_void_p(raw_graph)
-    n = ctypes.c_size_t(0)
-    rc = cuda.cuGraphGetNodes(graph, None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * max(n.value, 1))()
-    rc = rc or cuda.cuGraphGetNodes(graph, nodes, ctypes.byref(n))
-    if rc:
-        raise RuntimeError(f"cuGraphGetNodes failed (CUresult {rc})")
-    kernels, kind = 0, ctypes.c_int(0)
-    for i in range(n.value):
-        if cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]), ctypes.byref(kind)) == 0:
-            kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
-    return kernels, n.value
-
-
-class Captured(NamedTuple):
-    graph: Any                      # torch.cuda.CUDAGraph
-    inputs: tuple                   # static input buffers, filled before each replay
-    output: torch.Tensor            # static output, rewritten by each replay
-    counts: tuple[int, ...]         # the wrappers' launches a replay makes
-
-
-class StepGraphs:
+class StepGraphs(GraphCache):
     """The graphs of one trainer on ``device``; ``generator`` is the CUDA
     generator the step draws from; ``log`` gets one ``step_graph`` event a
     capture. All graphs share one memory pool: they replay one at a time on
     one stream, and each output is copied out before the next replay."""
 
     def __init__(self, device: torch.device, generator: torch.Generator, log):
-        self.device = device
+        super().__init__(device, log, "step_graph")
         self.generator = generator
-        self.log = log
-        self.graphs: dict[tuple, Captured] = {}
-        self.warm: set[tuple] = set()       # keys whose eager first call ran
-        self.addresses: tuple | None = None
-        self.pool = None
-        self.pool_bytes = 0                 # reserved memory the captures added
-
-    def drop(self) -> None:
-        """Forget every graph (their memory returns to the allocator)."""
-        self.graphs.clear()
-        self.warm.clear()
-        self.addresses = None
-        self.pool = None
-        self.pool_bytes = 0
 
     def check(self, state: Any, generator: torch.Generator) -> None:
         """Drops the graphs when the tensors of ``state`` (what the graphs
         read) no longer lie where they lay at capture, or the step draws
         from another generator than the one registered with them."""
-        addresses = tuple(t.data_ptr() for t in tensors(state))
-        if addresses != self.addresses or generator is not self.generator:
+        if generator is not self.generator:
             self.drop()
-            self.addresses, self.generator = addresses, generator
+            self.generator = generator
+        self.check_addresses(tuple(t.data_ptr() for t in tensors(state)))
 
     def steps(self, step: Callable, q_blk: torch.Tensor, p_blk: torch.Tensor,
               key: tuple) -> torch.Tensor:
@@ -183,10 +119,10 @@ class StepGraphs:
                 self.warm.add(key)
                 continue
             if g is None:
-                g = self._capture(key, step, (q_blk[s], p_blk[s]), generator=True)
+                g = self.capture(key, step, (q_blk[s], p_blk[s]), generator=self.generator)
             g.inputs[0].copy_(q_blk[s])
             g.inputs[1].copy_(p_blk[s])
-            self._replay(g)
+            self.replay(g)
             losses[s] = g.output
         return losses
 
@@ -198,47 +134,6 @@ class StepGraphs:
             self.warm.add(key)
             return fn()
         if g is None:
-            g = self._capture(key, fn, (), generator=False)
-        self._replay(g)
+            g = self.capture(key, fn, ())
+        self.replay(g)
         return g.output.clone()
-
-    def _replay(self, g: Captured) -> None:
-        g.graph.replay()
-        _set_counts(c + d for c, d in zip(read_counts(), g.counts))
-
-    def _capture(self, key: tuple, fn: Callable, inputs: tuple, generator: bool) -> Captured:
-        static = tuple(x.clone() for x in inputs)
-        before = read_counts()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-        if generator:
-            graph.register_generator_state(self.generator)
-        # Empty the cache first (the capture does too) so that the growth of
-        # reserved memory is the pool's.
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph, pool=self.pool):
-                out = fn(*static)
-            graph.instantiate()
-        except Exception as e:
-            self.drop()
-            raise RuntimeError(f"capturing the {key[0]} graph {key} failed: {e}") from e
-        finally:
-            counted = read_counts()
-            _set_counts(before)
-        seconds = time.perf_counter() - t0
-        grown = torch.cuda.memory_reserved(self.device) - reserved
-        self.pool_bytes += grown
-        kernels, nodes = _kernel_nodes(graph.raw_cuda_graph())
-        counts = tuple(c - b for c, b in zip(counted, before))
-        self.log.log("step_graph", key=list(key), kernels=kernels, nodes=nodes,
-                     capture_seconds=seconds, pool_bytes_added=grown,
-                     pool_bytes=self.pool_bytes,
-                     launches={n: c for n, c in zip(_COUNTER_NAMES, counts) if c})
-        g = Captured(graph, static, out, counts)
-        self.graphs[key] = g
-        return g
