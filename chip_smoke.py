@@ -127,6 +127,29 @@ Phases, one JSON line each:
    use), 8 threads x 16 requests and HTTP graphed (answers equal to eager
    search up to near-ties), then the same load eager; p50 / p99, capture seconds, pool
    bytes, free device memory beside the hub trainer.
+9c. epoch_graph — the per-epoch programs as CUDA graphs
+   (``core/graphs.ProgramGraphs``): on the serve corpus (4k), with
+   ``gather_impl=pallas`` on the gather rung and with the default (dense)
+   config, a graphed trainer and an eager one (``graphed = False``) from one
+   seed ``fit`` 3 epochs (12 batches of 512 an epoch): per epoch the tables,
+   params and validation metrics bitwise equal, the generators' states
+   equal after, the gather-pool launches equal (counts zeroed just before
+   each fit), a refresh and a ranks graph captured, one more refresh replay
+   under ``set_sync_debug_mode("error")`` equal to the eager trainer's
+   next; per epoch the refresh, validation and step ms both ways, then a
+   validation pass and the refresh program (the walks, and on the dense
+   rung its pool matrices, built in the same graph) timed both ways (wall,
+   the profiler's device time, kernels, busy share). On
+   ``train_hub``'s bipartite graph (118,419 nodes, 1,352,396 edges) real
+   walk tables at the default width: the trainer's refresh (59,393 rows)
+   and all nodes' (118,419 rows), each graphed against eager from one
+   generator state (bitwise equal tables and generator states, a replay
+   under sync debug mode "error", the capture's seconds and pool bytes,
+   under 1 GiB), beside the seconds ``set_neighborhood_tables`` takes on
+   the new tables (the operators' and layouts' build, eager). Then on
+   ``train_hub``'s 59,393 x 128 embeddings ``_ranks`` over its val pairs,
+   ``recommend`` at Q = 1 and 64 (k = 10) and k-means (100 lists, 15
+   iterations), each graphed against eager the same way.
 10. check  — the outputs are finite, unit-norm and of the expected shape, and
    the CUDA engine agrees with the CPU engine (plain versions) on a small
    input given the same params and tables, on the gather config, on a
@@ -2332,6 +2355,300 @@ def serve_graph_phase(dev, emb: np.ndarray, data, serve_corpus: tuple,
     return entry
 
 
+# ---------------------------------------------------------------------------
+# 9c. epoch_graph: the per-epoch programs as CUDA graphs
+# ---------------------------------------------------------------------------
+
+EPOCH_FIT_EPOCHS = 3
+
+
+def no_sync(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host sync raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def same_tree(a, b) -> bool:
+    from movie_recommendation_engine_tpu_torch.core.graphs import tensors
+
+    ta, tb = tensors(a), tensors(b)
+    return len(ta) == len(tb) and all(same_bits(x, y) for x, y in zip(ta, tb))
+
+
+def both_ways(eager_fn, graphed_fn, nodes: int, calls: int = 5,
+              profile_calls: int = 2) -> dict:
+    """Wall per call (host clock to a synchronized end, median of ``calls``
+    taken in turns) and the profiler's device time, kernels and busy share
+    (windows of ``profile_calls`` calls), eager and graphed. A profiler window must record at least the graph's
+    ``nodes`` kernels (both ways run them); one that falls short three
+    times gives no device time and says so under ``unresolved``."""
+    walls = {"eager": [], "graphed": []}
+    for _ in range(calls):
+        for mode, fn in (("eager", eager_fn), ("graphed", graphed_fn)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for mode, fn in (("eager", eager_fn), ("graphed", graphed_fn)):
+        for _ in range(3):
+            prof = device_profile(fn, calls=profile_calls)
+            if prof["device_ms"] is not None and prof["kernel_launches_per_call"] >= nodes:
+                break
+        row = {"wall_ms": statistics.median(walls[mode]), "wall_ms_min": min(walls[mode]),
+               "wall_ms_max": max(walls[mode])}
+        if prof["device_ms"] is not None and prof["kernel_launches_per_call"] >= nodes:
+            row.update({x: prof[x] for x in ("device_ms", "kernels_per_call",
+                                             "kernel_launches_per_call")},
+                       busy_share=prof["device_ms"] / row["wall_ms"], top=prof["top"][:3])
+        else:
+            row.update(device_ms=None, busy_share=None,
+                       unresolved=f"{prof['kernel_launches_per_call']} kernels a call "
+                                  f"recorded, {nodes} launched")
+        out[mode] = row
+    return out
+
+
+class EpochSnapshots:
+    """A quiet logger (``MetricsLogger`` on a string) that copies, at each
+    epoch's record, the trainer's tables and params and the epoch's stats."""
+
+    def __init__(self):
+        from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+
+        self.log = MetricsLogger(io.StringIO())
+        self.log.log_epoch = self.log_epoch
+        self.trainer = None
+        self.epochs = []
+
+    def log_epoch(self, epoch: int, **fields) -> None:
+        from movie_recommendation_engine_tpu_torch.core import tree
+
+        self.log.log("epoch", epoch=epoch, **fields)
+        t = self.trainer
+        self.epochs.append({
+            "tables": [(nb.clone(), w.clone()) for nb, w in t.nbr_tables],
+            "params": {k: v.detach().clone() for k, v in tree.flatten(t.params).items()},
+            "val": {k: v for k, v in fields.items() if k.startswith("val_")
+                    and k != "val_seconds"}, "stats": fields})
+
+
+def fit_twins(dev, data, name: str, overrides: dict, ckpt_dir: str) -> dict:
+    """A graphed trainer and an eager one (``graphed = False``) from one
+    seed ``fit`` ``EPOCH_FIT_EPOCHS`` epochs (12 batches of 512 an epoch):
+    per epoch the refresh (eager, then captured, then replayed), the step
+    graphs, the embedding graph and the ranks graph. Gates: per epoch the
+    tables, params and validation metrics bitwise equal, the generators'
+    states equal at the end, the gather-pool launches equal, the refresh and
+    ranks graphs captured, and one more refresh replay under sync debug mode
+    "error" equal to the eager trainer's next refresh. Reports per epoch the
+    refresh ms (the ``neighborhoods`` event), the validation ms and the
+    step ms (mean after the first block), both ways."""
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+
+    cfg = default_config().override({
+        "data.source": "synthetic", "train.epochs": EPOCH_FIT_EPOCHS,
+        "train.max_pairs_per_epoch": GRAPH_PAIRS, "paths.checkpoint_dir": ckpt_dir,
+        **overrides})
+    runs = {}
+    for mode in ("graphed", "eager"):
+        snaps = EpochSnapshots()
+        tr = Trainer(cfg, data, logger=snaps.log, device=dev)
+        snaps.trainer = tr
+        tr.graphed = mode == "graphed"
+        zero_launches()
+        t0 = time.perf_counter()
+        tr.fit()
+        torch.cuda.synchronize()
+        runs[mode] = {"trainer": tr, "snaps": snaps, "launches": read_launches(),
+                      "fit_s": time.perf_counter() - t0}
+    g, e = runs["graphed"], runs["eager"]
+    what = f"epoch_graph {name}"
+    per_epoch = []
+    for i, (sg, se) in enumerate(zip(g["snaps"].epochs, e["snaps"].epochs)):
+        row = {"tables_equal": same_tree(sg["tables"], se["tables"]),
+               "params_first_difference": first_difference(sg["params"], se["params"]),
+               "val_equal": sg["val"] == se["val"], "val": sg["val"]}
+        for mode, s in (("graphed", sg), ("eager", se)):
+            refresh = [ev["seconds"] for ev in runs[mode]["snaps"].log.history
+                       if ev["event"] == "neighborhoods" and ev["epoch"] == i]
+            row[mode] = {"refresh_ms": refresh[0] * 1e3 if refresh else None,
+                         "val_ms": (s["stats"]["val_seconds"] * 1e3
+                                    if "val_seconds" in s["stats"] else None),
+                         "step_ms": s["stats"]["step_ms_avg"],
+                         "epoch_ms": s["stats"]["epoch_seconds"] * 1e3}
+        per_epoch.append(row)
+        check(row["tables_equal"] and row["params_first_difference"] is None
+              and row["val_equal"], f"{what} epoch {i}: graphed and eager differ: "
+                                    f"{json.dumps(row, default=str)}")
+    check(len(per_epoch) == EPOCH_FIT_EPOCHS, f"{what}: {len(per_epoch)} epochs recorded")
+    gt, et = g["trainer"], e["trainer"]
+    check(torch.equal(gt.generator.get_state(), et.generator.get_state()),
+          f"{what}: the generators' states differ after the fit")
+    check(g["launches"] == e["launches"],
+          f"{what}: launches {g['launches']} graphed, {e['launches']} eager")
+    captures = [{k: ev[k] for k in ("key", "kernels", "nodes", "capture_seconds",
+                                     "pool_bytes_added")}
+                for ev in g["snaps"].log.history if ev["event"] == "program_graph"]
+    check({c["key"][0] for c in captures} == {"refresh", "ranks"},
+          f"{what}: expected a refresh and a ranks graph, captured {captures}")
+    # One more refresh: a replay with no host sync, equal to the eager one.
+    tables = no_sync(gt.walk_tables)
+    check(same_tree(tables, et.walk_tables()), f"{what}: a refresh replay differs from eager")
+    out = {"rung": rung_of(gt.pool_mats), "epochs": per_epoch, "launches": g["launches"],
+           "launches_eager": e["launches"], "fit_s": {m: runs[m]["fit_s"] for m in runs},
+           "captures": captures, "step_graphs": len(gt.graphs.graphs),
+           "program_pool_bytes": gt.graphs.programs.pool_bytes,
+           "refresh_replay_no_sync": True}
+    # A validation pass (the embedding graph, then the ranks graph) and the
+    # refresh program (the walks, and on the dense rung its matrices) timed
+    # both ways, each call in turns.
+    nodes = {c["key"][0]: c["kernels"] for c in captures}
+    vp = gt.val_pairs
+    out["validation"] = both_ways(lambda: et.evaluate(vp), lambda: gt.evaluate(vp),
+                                  nodes["ranks"], calls=7, profile_calls=5)
+    out["refresh"] = both_ways(et.walk_tables, gt.walk_tables, nodes["refresh"], calls=7,
+                               profile_calls=3)
+    del runs, g, e, gt, et
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def refresh_at_scale(tr, rows: int, seed: int) -> dict:
+    """The refresh of ``rows`` table rows on ``tr``'s graph at the config's
+    width, graphed (its own ``ProgramGraphs``) against eager from one
+    generator state: the first graphed call (eager), the second (capture,
+    replay) and a replay under sync debug mode "error" bitwise equal to the
+    eager tables and leaving the generator as eager does; then wall, device
+    time, kernels and busy share both ways, the capture and its pool bytes."""
+    from movie_recommendation_engine_tpu_torch.core.graphs import ProgramGraphs
+    from movie_recommendation_engine_tpu_torch.sampling import random_walk as rw
+
+    cfg = tr.cfg
+    cache = ProgramGraphs(tr.device)
+
+    def walk(graphed: bool):
+        return rw.all_node_neighborhood_tables(
+            tr.graph, cfg.model.num_layers, cfg.walk.num_walks, cfg.walk.walk_length,
+            cfg.walk.num_neighbors, tr.n_iters, generator=tr.generator, num_nodes=rows,
+            restrict_below=tr._count_below(), graphs=cache, graphed=graphed)
+
+    def from_seed(fn):
+        tr.generator.manual_seed(seed)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, tr.generator.get_state()
+
+    ref, state = from_seed(lambda: walk(False))
+    got = [from_seed(lambda: walk(True)), from_seed(lambda: walk(True)),
+           from_seed(lambda: no_sync(lambda: walk(True)))]
+    for call, (tables, st) in enumerate(got):
+        check(same_tree(tables, ref) and torch.equal(st, state),
+              f"epoch_graph refresh {rows} rows, call {call}: graphed differs from eager")
+    (ev,) = cache.events
+    out = {"rows": rows, "graph_nodes": tr.graph.num_nodes,
+           "graph_edges": int(tr.graph.indices.shape[0]), "n_iters": tr.n_iters,
+           "chunks": -(-rows // 16384), "capture": {k: ev[k] for k in (
+               "key", "kernels", "nodes", "capture_seconds", "pool_bytes_added")},
+           "pool_bytes": cache.pool_bytes, "bitwise_equal": True, "no_sync_replay": True}
+    out.update(both_ways(lambda: walk(False), lambda: walk(True), ev["kernels"]))
+    check(cache.pool_bytes < 1 << 30,
+          f"epoch_graph refresh {rows} rows: pool {cache.pool_bytes} bytes, not under 1 GiB")
+    del cache
+    return out, ref
+
+
+def program_at_scale(dev, name: str, run) -> dict:
+    """``run(graphed, cache)`` (a ranks, recommend or k-means call) graphed
+    against eager: the first graphed call (eager), the second (capture,
+    replay) and a replay under sync debug mode "error" bitwise equal to the
+    eager output; then both timed (``both_ways``)."""
+    from movie_recommendation_engine_tpu_torch.core.graphs import ProgramGraphs
+
+    cache = ProgramGraphs(dev)
+    ref = run(False, cache)
+    got = [run(True, cache), run(True, cache), no_sync(lambda: run(True, cache))]
+    for call, out in enumerate(got):
+        check(same_tree(out, ref), f"epoch_graph {name}, call {call}: graphed differs "
+                                   "from eager")
+    (ev,) = cache.events
+    out = {"capture": {k: ev[k] for k in ("key", "kernels", "nodes", "capture_seconds",
+                                          "pool_bytes_added")},
+           "bitwise_equal": True, "no_sync_replay": True}
+    out.update(both_ways(lambda: run(False, cache), lambda: run(True, cache), ev["kernels"],
+                         profile_calls=5))
+    return out
+
+
+def epoch_graph_phase(dev, serve_data, hub_tr, hub_emb: np.ndarray) -> dict:
+    """The per-epoch programs as CUDA graphs (``core/graphs.ProgramGraphs``):
+    ``fit_twins`` on the serve corpus (4k) with ``gather_impl=pallas`` on the
+    gather rung and with the default (dense) config; then on ``train_hub``'s
+    bipartite graph (118,419 nodes) real walk tables at the default width,
+    the trainer's refresh (59,393 rows) and all nodes' (118,419 rows), each
+    graphed against eager (``refresh_at_scale``), beside the seconds of
+    ``set_neighborhood_tables`` on the new tables (the pool operators' and
+    layouts' build, the eager remainder of a refresh); ``_ranks`` over
+    ``train_hub``'s val pairs, ``recommend`` at Q = 1 and 64 (k = 10) and
+    k-means (100 lists, 15 iterations) on its 59,393 x 128 embeddings
+    (``program_at_scale``). Returns the gather fit's launch counts."""
+    from movie_recommendation_engine_tpu_torch.evaluation import metrics
+    from movie_recommendation_engine_tpu_torch.retrieval import ivf
+
+    t_phase = time.perf_counter()
+    fits = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, overrides in (("gather", {"model.pool_impl": "gather",
+                                            "model.gather_impl": "pallas"}), ("dense", {})):
+            fits[name] = fit_twins(dev, serve_data, name, overrides, d)
+    check(fits["gather"]["launches"]["gather_pool_bwd_segment"] > 0,
+          "epoch_graph: the gather fit launched no segment backward")
+
+    refresh, tables = {}, None
+    for name, rows in (("trainer_rows", hub_tr.table_rows),
+                       ("all_nodes", hub_tr.graph.num_nodes)):
+        refresh[name], walked = refresh_at_scale(hub_tr, rows, seed=11)
+        tables = walked if tables is None else tables
+    del walked
+    n0 = len(hub_tr.log.history)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hub_tr.set_neighborhood_tables(tables)
+    torch.cuda.synchronize()
+    refresh["set_tables_s"] = time.perf_counter() - t0
+    refresh["rung"] = rung_of(hub_tr.pool_mats)
+    refresh["builds"] = [{k: v for k, v in e.items() if k != "time"}
+                         for e in hub_tr.log.history[n0:]
+                         if e["event"].startswith(("hub_pool", "block_"))]
+    del tables
+
+    emb = torch.as_tensor(hub_emb, device=dev)
+    n = emb.shape[0]
+    pairs = hub_tr.val_pairs
+    pairs = pairs[(pairs >= 0).all(axis=1) & (pairs < n).all(axis=1)]
+    q, g = (torch.as_tensor(pairs[:, i], dtype=torch.int64, device=dev) for i in (0, 1))
+    programs = {"ranks": program_at_scale(dev, "ranks", lambda graphed, c: metrics._ranks(
+        emb, q, g, chunk=1024, graphs=c, graphed=graphed))}
+    programs["ranks"]["queries"] = int(q.shape[0])
+    for q_rows in (1, 64):
+        qi = torch.arange(q_rows, device=dev) * (n // q_rows)
+        programs[f"recommend_q{q_rows}"] = program_at_scale(
+            dev, f"recommend Q={q_rows}", lambda graphed, c, qi=qi: metrics.recommend(
+                emb, qi, k=10, graphs=c, graphed=graphed))
+    programs["kmeans"] = program_at_scale(dev, "kmeans", lambda graphed, c: ivf.kmeans(
+        emb, 100, 15, seed=0, graphs=c, graphed=graphed))
+    out = {"fits": fits, "refresh_59k": refresh, "programs_59k": programs,
+           "seconds": time.perf_counter() - t_phase}
+    emit("epoch_graph", **out)
+    return fits["gather"]["launches"]
+
+
 def check_phase(dev) -> None:
     """The CUDA engine against the CPU engine (plain versions) on a small
     input with the same params and tables, float32 compute: the gather
@@ -3411,7 +3728,17 @@ def main() -> int:
                       library_ms_ppr_push_59k=at_scale["push"]["library_cusparse"]["ms"])
     ham["launches"] = launches["hamming_distance"]
     ham.update(retrieval_phase(dev, hub_emb, hub_eng.data))
+    from movie_recommendation_engine_tpu_torch import default_config
+    from movie_recommendation_engine_tpu_torch.core import roofline
+    search = default_config().search
+    q256 = roofline.hamming_bound(256, hub_emb.shape[0], search.lsh_tables,
+                                  search.lsh_bits // 32, float(clock))
+    ham.update(bound_ms_59k_q256=q256["ms"], bound_by_59k_q256=q256["by"])
     ham.update(serve_graph_phase(dev, hub_emb, hub_eng.data, serve_corpus, float(clock)))
+    epoch_launches = epoch_graph_phase(dev, serve_corpus[1], hub_eng.trainer, hub_emb)
+    pool_entry["launches_epoch_graph"] = epoch_launches["gather_pool"]
+    bwd.update(launches_epoch_graph=epoch_launches["gather_pool_bwd"],
+               launches_epoch_graph_segment=epoch_launches["gather_pool_bwd_segment"])
     hub_data = hub_eng.data
     del hub_eng
     gc.collect()

@@ -44,6 +44,7 @@ class Engine:
         self.data = dataset.load(self.cfg, self.log)
         self.trainer = Trainer(self.cfg, self.data, self.log, device=self.device)
         self._emb: np.ndarray | None = None
+        self._emb_device = None          # the same rows on the device
 
     # -- training / checkpoints ----------------------------------------------
 
@@ -72,7 +73,8 @@ class Engine:
     def embeddings(self, refresh: bool = False) -> np.ndarray:
         """[num_movies, embed_dim] L2-normalized item embeddings (cached)."""
         if self._emb is None or refresh:
-            self._emb = self.trainer.movie_embeddings().cpu().numpy()
+            self._emb_device = self.trainer.movie_embeddings()
+            self._emb = self._emb_device.cpu().numpy()
         return self._emb
 
     def evaluate(self, pairs: np.ndarray | None = None) -> dict:
@@ -83,7 +85,10 @@ class Engine:
                   by_index: bool = False) -> list[dict]:
         """Top-k similar items for one movieId or a watch history (external
         movieIds unless ``by_index``). Exact search; ``serve()`` builds a
-        batched / ANN server."""
+        batched / ANN server. On ``cuda`` a movieId's top-k is
+        ``evaluation.metrics.recommend`` on the card, a replay of its CUDA
+        graph from the third call of a ``k`` on (the trainer's
+        ``graphs.programs``); a history ranks on the host, as JAX's does."""
         emb = self.embeddings()
         lut = self.data.movie_id_to_idx()
 
@@ -100,20 +105,40 @@ class Engine:
             exclude = set(idxs)
         elif movie_id is not None:
             qi = to_idx(movie_id)
+            if self.device.type == "cuda":
+                return self._rows(*self._recommend_on_device(qi, k), exclude={qi}, k=k)
             q, exclude = emb[qi], {qi}
         else:
             raise ValueError("pass movie_id or history")
 
         sims = emb @ q
+        order = np.argsort(-sims)
+        return self._rows(order, sims[order], exclude, k)
+
+    def _recommend_on_device(self, qi: int, k: int) -> tuple[np.ndarray, np.ndarray]:
+        """(indices, scores) of ``qi``'s top min(k, N) rows on the card; the
+        query, scored -inf, comes last if at all."""
+        import torch
+
+        from .evaluation.metrics import recommend
+
+        tr = self.trainer
+        emb = self._emb_device
+        kk = min(k, emb.shape[0])
+        scores, idx = recommend(emb, torch.tensor([qi], device=self.device), k=kk,
+                                graphs=tr.graphs.programs, graphed=tr.graphed)
+        return idx[0].cpu().numpy(), scores[0].cpu().numpy()
+
+    def _rows(self, order, scores, exclude, k: int) -> list[dict]:
         out = []
-        for i in np.argsort(-sims):
+        for i, score in zip(order, scores):
             if int(i) in exclude:
                 continue
             out.append({
                 "movieId": int(self.data.movie_ids[i]),
                 "title": self.data.titles[i],
                 "genres": self.data.genres[i],
-                "score": float(sims[i]),
+                "score": float(score),
             })
             if len(out) == k:
                 break

@@ -19,6 +19,7 @@ import torch
 def run_demo(cfg, args) -> int:
     from ..core import checkpoint as ckpt
     from ..core.device import resolve_device
+    from ..core.graphs import ProgramGraphs
     from ..core.logging import MetricsLogger
     from ..evaluation.metrics import recommend
     from ..graph import dataset
@@ -39,6 +40,7 @@ def run_demo(cfg, args) -> int:
             tr.load_checkpoint(best)
         emb = tr.movie_embeddings().cpu().numpy()
     emb_t = torch.as_tensor(emb, device=device)
+    graphs = ProgramGraphs(device)      # recommend's graphs (on cuda)
 
     # Popularity = rating count per movie.
     pop = np.bincount(data.movie_idx, minlength=data.num_movies)
@@ -67,7 +69,7 @@ def run_demo(cfg, args) -> int:
         qidx = lut[movie_id]
         print("query:")
         show(qidx)
-        _, idx = recommend(emb_t, torch.tensor([qidx], device=device), k=k)
+        _, idx = recommend(emb_t, torch.tensor([qidx], device=device), k=k, graphs=graphs)
         print("recommendations:")
         for i in idx[0].cpu().numpy():
             show(int(i))

@@ -162,7 +162,8 @@ def cmd_recommend(cfg: Config, args) -> int:
         from ..evaluation.metrics import recommend as rec
 
         e = torch.as_tensor(emb, device=tr.device)
-        scores, idx = rec(e, torch.tensor([qidx], device=tr.device), k=k)
+        scores, idx = rec(e, torch.tensor([qidx], device=tr.device), k=k,
+                          graphs=tr.graphs.programs, graphed=tr.graphed)
         idx, scores = idx[0].cpu().numpy(), scores[0].cpu().numpy()
     else:
         index = make_index(method, emb.shape[1], cfg, device=tr.device)

@@ -9,11 +9,16 @@ jitted program with static shapes: captured once for each static key, it
 reads its inputs at fixed addresses and replays with one host call.
 
 ``GraphCache`` holds what the trainer's ``StepGraphs``
-(``train/step_graph.py``) and the indexes' ``SearchGraphs`` share: one graph
-per key in one memory pool, the keys whose eager first call ran, the
-addresses of what the graphs read (a change drops them), and the capture
-itself, which logs one event per graph. ``SearchGraphs`` runs one search
-program per (query rows, ``k``, the index's static form).
+(``train/step_graph.py``), the indexes' ``SearchGraphs`` and the
+``ProgramGraphs`` share: one graph per key in one memory pool, the keys
+whose eager first call ran, the addresses of what the graphs read (a change
+drops them), the capture itself, which logs one event per graph, and
+``call``: the first call under a key eager, the second captured, every call
+from then on a replay on its inputs copied into the static buffers, its
+outputs copied out. ``SearchGraphs`` runs one search program per (query
+rows, ``k``, the index's static form); ``ProgramGraphs`` runs JAX's other
+jitted programs, one graph per static key: the trainer's neighbourhood
+refresh, the validation ranks, ``recommend`` and k-means.
 
 The kernel wrappers count launches on the host (``ops.pool.LAUNCHES`` and
 the others). A capture runs the wrappers once and launches nothing, so the
@@ -76,6 +81,13 @@ def kernel_nodes(raw_graph: int) -> tuple[int, int]:
         if cuda.cuGraphNodeGetType(ctypes.c_void_p(nodes[i]), ctypes.byref(kind)) == 0:
             kernels += kind.value == 0          # CU_GRAPH_NODE_TYPE_KERNEL
     return kernels, n.value
+
+
+def copies(out: Any) -> Any:
+    """A copy of a tensor, or a tuple of copies of a tuple's tensors."""
+    if torch.is_tensor(out):
+        return out.clone()
+    return tuple(o.clone() for o in out)
 
 
 class Captured(NamedTuple):
@@ -165,21 +177,42 @@ class GraphCache:
         self.graphs[key] = g
         return g
 
+    def call(self, key: tuple, fn: Callable, inputs: tuple = (),
+             generator: torch.Generator | None = None) -> Any:
+        """``fn(*inputs)``: eager on the first call under ``key``; on the
+        second captured (``generator`` registered), then replayed; every
+        replay copies ``inputs`` into the static buffers first and returns
+        copies of the static outputs (``copies``)."""
+        g = self.graphs.get(key)
+        if g is None and key not in self.warm:
+            self.warm.add(key)
+            return fn(*inputs)
+        if g is None:
+            g = self.capture(key, fn, inputs, generator=generator)
+        for static, x in zip(g.inputs, inputs):
+            static.copy_(x)
+        self.replay(g)
+        return copies(g.output)
 
-def queries_on(device: torch.device, queries) -> torch.Tensor:
-    """``queries`` as f32 on ``device``. Host rows reach the card through a
-    pinned buffer and a copy that does not wait (the pinned allocator keeps
-    the buffer until the copy has run), so a search enqueues without a host
-    sync."""
-    if torch.is_tensor(queries) and queries.device == device:
-        return queries.float()
-    host = torch.as_tensor(np.asarray(queries) if not torch.is_tensor(queries) else queries,
-                           dtype=torch.float32)
+
+def on_device(device: torch.device, x, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` (an array, a list or a tensor) as ``dtype`` on ``device``. Host
+    data reach the card through a pinned buffer and a copy that does not
+    wait (the pinned allocator keeps the buffer until the copy has run), so
+    a caller enqueues without a host sync."""
+    if torch.is_tensor(x) and x.device == device:
+        return x.to(dtype)
+    host = torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x, dtype=dtype)
     if device.type == "cpu":
         return host.cpu()
     if host.device.type == "cpu":
         host = host.pin_memory()
     return host.to(device, non_blocking=True)
+
+
+def queries_on(device: torch.device, queries) -> torch.Tensor:
+    """``queries`` as f32 on ``device`` (``on_device``)."""
+    return on_device(device, queries, torch.float32)
 
 
 class SearchGraphs(GraphCache):
@@ -204,12 +237,46 @@ class SearchGraphs(GraphCache):
         key = (key[0], int(q.shape[0]), *key[1:])
         with self.lock:
             self.check_addresses(tuple((t.data_ptr(), tuple(t.shape)) for t in reads))
-            g = self.graphs.get(key)
-            if g is None and key not in self.warm:
-                self.warm.add(key)
-                return fn(q)
-            if g is None:
-                g = self.capture(key, fn, (q,))
-            g.inputs[0].copy_(q)
-            self.replay(g)
-            return tuple(o.clone() for o in g.output)
+            return self.call(key, fn, (q,))
+
+
+class ProgramGraphs(GraphCache):
+    """One graph per static key of JAX's other jitted programs: the
+    trainer's neighbourhood refresh (``sampling/random_walk.py``), the
+    validation ranks and ``recommend`` (``evaluation/metrics.py``) and
+    k-means (``retrieval/ivf.py``). ``run`` is ``call`` under a lock, with
+    each key's own record of what its graph reads besides its inputs (the
+    addresses and shapes of ``reads`` and the generator registered with
+    it): a change drops that key's graph alone. Logs ``program_graph``."""
+
+    def __init__(self, device: torch.device, log=None):
+        super().__init__(device, log, "program_graph")
+        self.lock = threading.Lock()
+        self.reads: dict[tuple, tuple] = {}
+
+    def drop(self) -> None:
+        super().drop()
+        self.reads.clear()
+
+    def run(self, key: tuple, fn: Callable, inputs: tuple = (), reads: tuple = (),
+            generator: torch.Generator | None = None) -> Any:
+        """``fn(*inputs)`` under ``key`` (``call``); ``generator`` is what
+        ``fn`` draws from."""
+        seen = (id(generator), *((t.data_ptr(), tuple(t.shape)) for t in reads))
+        with self.lock:
+            if self.reads.get(key, seen) != seen:
+                self.graphs.pop(key, None)
+                self.warm.discard(key)
+            self.reads[key] = seen
+            return self.call(key, fn, inputs, generator)
+
+
+def use_graphs(graphs: ProgramGraphs | None, graphed: bool | None,
+               device: torch.device) -> bool:
+    """Whether a program runs through ``graphs``: ``graphed`` if given,
+    else when ``graphs`` is given and the program runs on ``cuda``."""
+    if graphed is None:
+        return graphs is not None and device.type == "cuda"
+    if graphed and graphs is None:
+        raise ValueError("graphed=True needs graphs= (a core.graphs.ProgramGraphs)")
+    return graphed

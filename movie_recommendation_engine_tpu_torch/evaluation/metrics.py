@@ -8,35 +8,70 @@ from a similarity-count compare, so no full sort is needed:
 - HR@k for each k: gt within top-k.
 - scaled MRR = mean(1 / (rank / scale)) with scale=100 (reference
   utils/evaluation.py:66-69); the standard MRR is reported too.
+
+JAX jits ``_ranks`` (a scan over whole query chunks) and ``recommend``, one
+program per static shape. Given ``graphs`` (a ``core.graphs.ProgramGraphs``)
+on ``cuda`` each runs as one CUDA graph per key: ``_ranks`` per (rows, dim,
+padded queries, chunk), ``recommend`` per (rows, dim, queries, ``k``,
+``exclude_query``); ``graphed=False`` runs them eager.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 
+from ..core.graphs import ProgramGraphs, on_device, use_graphs
 from ..core.ranking import top_k
 
 
 def _ranks(embeddings: torch.Tensor, query_idx: torch.Tensor,
-           gt_idx: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+           gt_idx: torch.Tensor, chunk: int = 1024, graphs: ProgramGraphs | None = None,
+           graphed: bool | None = None) -> torch.Tensor:
     """[Q] 1-based rank of each ground-truth item among all items by
-    dot-product similarity to the query, chunked over queries."""
-    out = []
-    for s in range(0, query_idx.shape[0], chunk):
-        qe = embeddings[query_idx[s:s + chunk]]                  # [C, D]
-        sims = qe @ embeddings.T                                  # [C, N]
-        gt_sim = (qe * embeddings[gt_idx[s:s + chunk]]).sum(dim=1)
-        out.append(1 + (sims > gt_sim[:, None]).sum(dim=1))
-    if not out:
+    dot-product similarity to the query. The queries are padded to whole
+    chunks as JAX's are (padded rows read item 0 and are sliced off; each
+    row is ranked on its own)."""
+    q = query_idx.shape[0]
+    if q == 0:
         return torch.zeros(0, dtype=torch.int64, device=embeddings.device)
-    return torch.cat(out)
+    pad = (-q) % chunk
+    qi, gi = (torch.cat([x.long(), x.new_zeros(pad, dtype=torch.int64)])
+              for x in (query_idx, gt_idx))
+    fn = partial(_chunked_ranks, chunk=chunk)
+    if use_graphs(graphs, graphed, embeddings.device):
+        n, d = embeddings.shape
+        out = graphs.run(("ranks", n, d, q + pad, chunk), fn, (embeddings, qi, gi))
+    else:
+        out = fn(embeddings, qi, gi)
+    return out[:q]
+
+
+def _chunked_ranks(embeddings: torch.Tensor, qi: torch.Tensor, gi: torch.Tensor,
+                   chunk: int) -> torch.Tensor:
+    out = torch.empty(qi.shape[0], dtype=torch.int64, device=embeddings.device)
+    for s in range(0, qi.shape[0], chunk):
+        # One chunk's [C, N] products are freed before the next's are made.
+        out[s:s + chunk] = _chunk_ranks(embeddings, qi[s:s + chunk], gi[s:s + chunk])
+    return out
+
+
+def _chunk_ranks(embeddings: torch.Tensor, qc: torch.Tensor, gc: torch.Tensor) -> torch.Tensor:
+    qe = embeddings[qc]                                           # [C, D]
+    sims = qe @ embeddings.T                                      # [C, N]
+    gt_sim = (qe * embeddings[gc]).sum(dim=1)
+    return 1 + (sims > gt_sim[:, None]).sum(dim=1)
 
 
 def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),
-                        mrr_scale: float = 100.0, chunk: int = 1024) -> dict[str, float]:
+                        mrr_scale: float = 100.0, chunk: int = 1024,
+                        graphs: ProgramGraphs | None = None,
+                        graphed: bool | None = None) -> dict[str, float]:
     """HR@k / MRR over [Q, 2] (query_idx, gt_idx) pairs. Pairs whose query
-    or gt index is out of range are dropped first."""
+    or gt index is out of range are dropped first. The ranks reach the host
+    in one copy."""
     emb = torch.as_tensor(embeddings)
     pairs = np.asarray(positive_pairs)
     n = emb.shape[0]
@@ -47,9 +82,9 @@ def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),
         out = {f"hit_rate@{k}": 0.0 for k in k_values}
         out.update({"mrr": 0.0, "mrr_standard": 0.0, "num_pairs": 0})
         return out
-    q = torch.as_tensor(pairs[:, 0], dtype=torch.int64, device=emb.device)
-    g = torch.as_tensor(pairs[:, 1], dtype=torch.int64, device=emb.device)
-    ranks = _ranks(emb, q, g, chunk=min(chunk, 4096)).cpu().numpy().astype(np.float64)
+    q, g = on_device(emb.device, np.ascontiguousarray(pairs[:, :2].T), torch.int64)
+    ranks = _ranks(emb, q, g, chunk=min(chunk, 4096), graphs=graphs,
+                   graphed=graphed).cpu().numpy().astype(np.float64)
     out: dict[str, float] = {}
     for k in k_values:
         out[f"hit_rate@{k}"] = float((ranks <= k).mean())
@@ -60,11 +95,22 @@ def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),
 
 
 def recommend(embeddings: torch.Tensor, query_idx: torch.Tensor, k: int = 10,
-              exclude_query: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
+              exclude_query: bool = True, graphs: ProgramGraphs | None = None,
+              graphed: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k by inner product per query: (scores [Q, k], indices [Q, k]),
     the lower index first among equal scores."""
+    fn = partial(_recommend, k=k, exclude_query=exclude_query)
+    if use_graphs(graphs, graphed, embeddings.device):
+        n, d = embeddings.shape
+        key = ("recommend", n, d, int(query_idx.shape[0]), k, exclude_query)
+        return graphs.run(key, fn, (embeddings, query_idx.long()))
+    return fn(embeddings, query_idx)
+
+
+def _recommend(embeddings: torch.Tensor, query_idx: torch.Tensor, k: int,
+               exclude_query: bool) -> tuple[torch.Tensor, torch.Tensor]:
     sims = embeddings[query_idx] @ embeddings.T
     if exclude_query:
-        rows = torch.arange(query_idx.shape[0], device=sims.device)
-        sims[rows, query_idx] = -torch.inf
+        # A scalar fill: no host tensor to copy inside a capture.
+        sims.scatter_(1, query_idx.long()[:, None], -torch.inf)
     return top_k(sims, k)

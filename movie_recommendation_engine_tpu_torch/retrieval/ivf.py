@@ -21,7 +21,8 @@ JAX runs the whole search (coarse top-k, the ``nprobe`` probes as one
 ``lax.scan``, the id mapping) as one jitted ``_ivf_search`` program per
 query rows and ``k``; on ``cuda`` it is one CUDA graph per (query rows,
 ``k``, ``nprobe``, budget), captured at the key's second call
-(``core/graphs.SearchGraphs``).
+(``core/graphs.SearchGraphs``). k-means' iterations, one jitted scan in
+JAX, are one CUDA graph per shape (``core/graphs.ProgramGraphs``).
 
 Ranks go through ``core.ranking.top_k``, so the lower position comes first
 among equal distances (``jax.lax.top_k``'s order). The initial centroids are rows
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.graphs import SearchGraphs
+from ..core.graphs import ProgramGraphs, SearchGraphs, on_device, use_graphs
 from ..core.ranking import top_k
 
 
@@ -54,14 +55,32 @@ def init_indices(n: int, num_clusters: int, seed: int = 0) -> torch.Tensor:
 
 
 def kmeans(x: torch.Tensor, num_clusters: int, iters: int = 15, seed: int = 0,
-           init_idx=None) -> tuple[torch.Tensor, torch.Tensor]:
+           init_idx=None, graphs: ProgramGraphs | None = None,
+           graphed: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Lloyd k-means on ``x``'s device: (centroids [P, D] f32, assignments
     [N] int64). Starts from rows ``init_idx`` (else ``init_indices``); an
-    empty cluster keeps its centroid."""
+    empty cluster keeps its centroid. JAX scans the iterations in one jitted
+    program; through ``graphs`` on ``cuda`` they are one CUDA graph per
+    (rows, dim, clusters, iterations), the initial rows copied into its
+    static buffer. Given ``init_idx`` (the seam the tests use) it runs eager
+    by rule."""
     n = x.shape[0]
-    if init_idx is None:
+    seam = init_idx is not None
+    if not seam:
         init_idx = init_indices(n, num_clusters, seed)
-    centroids = x[torch.as_tensor(np.array(init_idx, dtype=np.int64), device=x.device)]
+    if not torch.is_tensor(init_idx):
+        init_idx = np.array(init_idx, dtype=np.int64)
+    init = on_device(x.device, init_idx, torch.int64)
+    fn = partial(_lloyd, num_clusters=num_clusters, iters=iters)
+    if not seam and use_graphs(graphs, graphed, x.device):
+        return graphs.run(("kmeans", n, x.shape[1], num_clusters, iters), fn, (x, init))
+    return fn(x, init)
+
+
+def _lloyd(x: torch.Tensor, init: torch.Tensor, num_clusters: int,
+           iters: int) -> tuple[torch.Tensor, torch.Tensor]:
+    n = x.shape[0]
+    centroids = x[init]
     clusters = torch.arange(num_clusters, device=x.device)
     # Rows per one-hot block: [P, rows] f32 stays within 256 MB.
     rows = max(1, (1 << 26) // max(num_clusters, 1))
@@ -126,8 +145,8 @@ class WeakANDIndex:
     ``ceil(balance_factor * N / P)`` rows (0 disables balancing);
     ``candidates_factor`` > 0 bounds each probed list's scan to
     ``k * candidates_factor`` rows. ``init_idx`` gives k-means' initial
-    rows. ``graphed`` (on by default on ``cuda``) runs the search as CUDA
-    graphs."""
+    rows. ``graphed`` (on by default on ``cuda``) runs the search and
+    k-means as CUDA graphs."""
 
     def __init__(self, dim: int, num_partitions: int = 100, candidates_factor: int = 0,
                  nprobe: int = 20, seed: int = 0, balance_factor: float = 4.0,
@@ -148,6 +167,9 @@ class WeakANDIndex:
         self._max_list = 0
         self.graphed = self.device.type == "cuda"
         self.graphs = SearchGraphs(self.device)
+        # k-means' graph: kept across builds, so a rebuild after a re-embed
+        # of the same shape replays it.
+        self.build_graphs = ProgramGraphs(self.device)
 
     @property
     def ntotal(self) -> int:
@@ -158,7 +180,8 @@ class WeakANDIndex:
         x = torch.as_tensor(embeddings, dtype=torch.float32, device=self.device)
         n = x.shape[0]
         p = min(self.num_partitions, n)
-        centroids, assign = kmeans(x, p, seed=self.seed, init_idx=self.init_idx)
+        centroids, assign = kmeans(x, p, seed=self.seed, init_idx=self.init_idx,
+                                   graphs=self.build_graphs, graphed=self.graphed)
         assign_np = assign.cpu().numpy()
         x_np = x.cpu().numpy()
         c_np = centroids.cpu().numpy()

@@ -10,7 +10,9 @@ sentinel id (== num_nodes) and weight 0.
 
 Uniforms come from a ``torch.Generator``; ``random_walks`` also takes them
 explicitly ([walk_length, B * num_walks]) so that tests can feed JAX's
-stream.
+stream, and so does ``all_node_neighborhood_tables``, the refresh of every
+layer's table, which runs on the card as one CUDA graph (JAX's one program
+per chunk).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.graphs import ProgramGraphs, use_graphs
 from ..graph.csr import CSRGraph
 
 
@@ -166,21 +169,61 @@ def all_node_neighborhood_tables(graph: DeviceGraph, num_layers: int,
                                  generator: torch.Generator | None = None,
                                  batch: int = 16384,
                                  num_nodes: int | None = None,
-                                 restrict_below: int | None = None
-                                 ) -> list[tuple[torch.Tensor, torch.Tensor]]:
+                                 restrict_below: int | None = None,
+                                 uniforms=None, graphs: ProgramGraphs | None = None,
+                                 graphed: bool | None = None, then=None):
     """One independent [N, K] (ids, weights) table per layer for every node,
-    chunked over ``batch`` start nodes."""
+    chunked over ``batch`` start nodes: per chunk, then per layer, one
+    ``random_walks`` draw of [walk_length, b * num_walks] uniforms and the
+    importance top-K. ``uniforms`` (those draws as a sequence, in that
+    order) replaces the generator's. ``then`` = (name, fn): ``fn(ids
+    [L, N, K], weights [L, N, K])`` runs after the walks in the same
+    program (the trainer's dense pool matrices), and its tuple of tensors is
+    returned beside the tables, as (tables, outputs).
+
+    JAX runs each chunk's walks and top-K of every layer as one jitted
+    program (``_multilayer_neighborhoods``). Through ``graphs`` (a
+    ``core.graphs.ProgramGraphs``, on ``cuda`` unless ``graphed`` says
+    otherwise) the whole refresh is one CUDA graph per key (rows, batch,
+    layers, walks, length, K, search depth, ``restrict_below``, ``then``'s
+    name), every chunk and layer in one replay, with ``generator``
+    registered with it: a replay draws what an eager refresh would, in the
+    same order and sizes, and leaves the generator where it would. Eager by
+    rule with ``uniforms`` and on a row-sharded graph."""
     n = num_nodes if num_nodes is not None else graph.num_nodes
-    ids = torch.arange(n, device=graph.indptr.device).clamp(max=graph.num_nodes - 1)
-    nbrs = [[] for _ in range(num_layers)]
-    wts = [[] for _ in range(num_layers)]
+
+    def program():
+        nbrs, wts = _tables(graph, num_layers, num_walks, walk_length, num_neighbors, n_iters,
+                            generator, batch, n, restrict_below, uniforms)
+        return (nbrs, wts) if then is None else (nbrs, wts, *then[1](nbrs, wts))
+
+    if (uniforms is None and isinstance(graph, DeviceGraph)
+            and use_graphs(graphs, graphed, graph.indptr.device)):
+        key = ("refresh", n, batch, num_layers, num_walks, walk_length, num_neighbors,
+               n_iters, restrict_below, *(() if then is None else (then[0],)))
+        out = graphs.run(key, program, reads=(graph.indptr, graph.indices, graph.cumprob),
+                         generator=generator)
+    else:
+        out = program()
+    tables = [(out[0][i], out[1][i]) for i in range(num_layers)]
+    return tables if then is None else (tables, tuple(out[2:]))
+
+
+def _tables(graph, num_layers: int, num_walks: int, walk_length: int, num_neighbors: int,
+            n_iters: int, generator, batch: int, n: int, restrict_below: int | None,
+            uniforms) -> tuple[torch.Tensor, torch.Tensor]:
+    """The refresh's [L, n, K] int32 ids and f32 weights."""
+    device = graph.indptr.device
+    ids = torch.arange(n, device=device).clamp(max=graph.num_nodes - 1)
+    nbrs = torch.empty((num_layers, n, num_neighbors), dtype=torch.int32, device=device)
+    wts = torch.empty((num_layers, n, num_neighbors), dtype=torch.float32, device=device)
+    draws = None if uniforms is None else iter(uniforms)
     for s in range(0, n, batch):
         chunk = ids[s:s + batch]
         for layer in range(num_layers):
             visited = random_walks(graph, chunk, num_walks, walk_length, n_iters,
-                                   generator=generator)
-            nb, w = importance_neighborhoods(visited, num_neighbors,
-                                             graph.sentinel, restrict_below)
-            nbrs[layer].append(nb)
-            wts[layer].append(w)
-    return [(torch.cat(nbrs[i]), torch.cat(wts[i])) for i in range(num_layers)]
+                                   generator=generator,
+                                   uniforms=None if draws is None else next(draws))
+            nbrs[layer, s:s + batch], wts[layer, s:s + batch] = importance_neighborhoods(
+                visited, num_neighbors, graph.sentinel, restrict_below)
+    return nbrs, wts

@@ -46,7 +46,7 @@ from typing import Any, Callable
 
 import torch
 
-from ..core.graphs import Captured, GraphCache, read_counts, tensors
+from ..core.graphs import Captured, GraphCache, ProgramGraphs, read_counts, tensors
 from ..ops import block_sparse, hub_pool
 
 __all__ = ["Captured", "StepGraphs", "copy_into", "read_counts", "rung", "tensors"]
@@ -96,15 +96,26 @@ class StepGraphs(GraphCache):
     def __init__(self, device: torch.device, generator: torch.Generator, log):
         super().__init__(device, log, "step_graph")
         self.generator = generator
+        # The trainer's per-epoch programs: the refresh and the validation
+        # ranks (a pool of their own; they read no params and no tables).
+        self.programs = ProgramGraphs(device, log)
+
+    def drop(self, programs: bool = True) -> None:
+        """Forgets the step and embedding graphs and, with ``programs``, the
+        refresh and ranks graphs too."""
+        super().drop()
+        if programs:
+            self.programs.drop()
 
     def check(self, state: Any, generator: torch.Generator) -> None:
-        """Drops the graphs when the tensors of ``state`` (what the graphs
-        read) no longer lie where they lay at capture, or the step draws
-        from another generator than the one registered with them."""
-        if generator is not self.generator:
-            self.drop()
-            self.generator = generator
-        self.check_addresses(tuple(t.data_ptr() for t in tensors(state)))
+        """Drops the step and embedding graphs when the tensors of ``state``
+        (what they read) no longer lie where they lay at capture, or the
+        step draws from another generator than the one registered with them.
+        The programs keep their own record of what they read."""
+        addresses = tuple(t.data_ptr() for t in tensors(state))
+        if generator is not self.generator or addresses != self.addresses:
+            self.drop(programs=False)
+            self.generator, self.addresses = generator, addresses
 
     def steps(self, step: Callable, q_blk: torch.Tensor, p_blk: torch.Tensor,
               key: tuple) -> torch.Tensor:
@@ -129,11 +140,4 @@ class StepGraphs(GraphCache):
     def embed(self, fn: Callable, key: tuple) -> torch.Tensor:
         """``fn()`` (the embedding pass): eager on the first call under
         ``key``, then captured and replayed; a copy of the output."""
-        g = self.graphs.get(key)
-        if g is None and key not in self.warm:
-            self.warm.add(key)
-            return fn()
-        if g is None:
-            g = self.capture(key, fn, ())
-        self.replay(g)
-        return g.output.clone()
+        return self.call(key, fn)

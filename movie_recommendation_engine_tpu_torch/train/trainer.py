@@ -34,6 +34,12 @@ takes each step's draws instead (``StepDraws``), which is how the tests feed
 JAX's. Table sampling
 (``refresh_neighborhoods``) is split from the building of the pool operators
 (``set_neighborhood_tables``) so that tables sampled elsewhere can be used.
+Where JAX runs each refresh chunk's walks and top-K as one program and its
+validation ranks as one scan, the card replays one CUDA graph of the whole
+refresh (``walk_tables``, with the dense rung's pool matrices) and one of
+the ranks (``evaluate``), kept in ``graphs.programs`` under the same rules
+as the step graphs; the hub and block operators and the segment layouts are
+built eager (host gates pick the rung and its shapes).
 """
 
 from __future__ import annotations
@@ -222,39 +228,64 @@ class Trainer:
     # ---- neighborhoods ----------------------------------------------------
 
     def refresh_neighborhoods(self) -> None:
-        """Resample one neighborhood table per layer for every table row,
-        then rebuild the pool operators. PPR tables (``walk.strategy="ppr"``)
-        are deterministic: they are built once (logged as ``ppr_tables``)
-        and every later refresh keeps them and their operators."""
+        """Resample one neighborhood table per layer for every table row
+        (``walk_tables``), then rebuild the pool operators. PPR tables
+        (``walk.strategy="ppr"``) are deterministic: they are built once
+        (logged as ``ppr_tables``) and every later refresh keeps them and
+        their operators."""
         cfg = self.cfg
-        restrict = (self.data.num_movies
-                    if cfg.walk.count_nodes == "movies" and cfg.graph.use_bipartite_graph
-                    else None)
         if cfg.walk.strategy == "ppr":
             if self.nbr_tables is not None:
                 return
             tables = ppr.all_node_neighborhood_tables_ppr(
                 self.graph, cfg.model.num_layers, cfg.walk.num_neighbors,
-                num_nodes=self.table_rows, restrict_below=restrict,
+                num_nodes=self.table_rows, restrict_below=self._count_below(),
                 alpha=cfg.walk.ppr_alpha, num_iterations=cfg.walk.ppr_iterations,
                 batch=cfg.walk.ppr_batch)
             self.log.log("ppr_tables", rows=self.table_rows, batch=cfg.walk.ppr_batch)
+            dense = None
         elif cfg.walk.strategy == "random_walk":
-            tables = rw.all_node_neighborhood_tables(
-                self.graph, cfg.model.num_layers, cfg.walk.num_walks,
-                cfg.walk.walk_length, cfg.walk.num_neighbors, self.n_iters,
-                generator=self.generator, num_nodes=self.table_rows,
-                restrict_below=restrict)
+            tables, dense = self.walk_tables()
         else:
             raise ValueError(f"unknown walk.strategy {cfg.walk.strategy!r} "
                              "(expected 'random_walk' or 'ppr')")
-        self.set_neighborhood_tables(tables)
+        self.set_neighborhood_tables(tables, dense)
 
-    def set_neighborhood_tables(self, tables) -> None:
+    def _count_below(self) -> int | None:
+        """The walks count only movie nodes of a bipartite graph
+        (``walk.count_nodes="movies"``), else every node."""
+        cfg = self.cfg
+        return (self.data.num_movies
+                if cfg.walk.count_nodes == "movies" and cfg.graph.use_bipartite_graph else None)
+
+    def walk_tables(self) -> tuple[list, tuple | None]:
+        """One freshly walked ([N, K] ids, [N, K] weights) table per layer
+        for every table row, drawn from the trainer's generator, and on the
+        dense and hybrid rungs their pool matrices, built from the tables in
+        the same program (else None): where ``graphed``, a replay of the
+        refresh's CUDA graph (one per shape, ``rw.all_node_neighborhood_tables``,
+        kept in ``graphs.programs``), else eager. The two draw the same
+        numbers and leave the generator in the same state."""
+        cfg = self.cfg
+        n_dense = self._dense_layers()
+        then = None
+        if n_dense:
+            then = (("dense", n_dense), lambda nbrs, wts: self._dense_matrices(
+                list(zip(nbrs, wts)), n_dense))
+        out = rw.all_node_neighborhood_tables(
+            self.graph, cfg.model.num_layers, cfg.walk.num_walks, cfg.walk.walk_length,
+            cfg.walk.num_neighbors, self.n_iters, generator=self.generator,
+            num_nodes=self.table_rows, restrict_below=self._count_below(),
+            graphs=self.graphs.programs, graphed=self.graphed, then=then)
+        return out if n_dense else (out, None)
+
+    def set_neighborhood_tables(self, tables, dense: tuple | None = None) -> None:
         """Use the given per-layer ([N, K] ids, [N, K] weights) tables (tensors
         or arrays, every table row) and build the pool operators of the
-        config's rung (``_pool_operators``). With ``gather_impl="pallas"`` it
-        also builds the backward kernel's layouts (``full_graph_layouts``).
+        config's rung (``_pool_operators``; ``dense``: the dense rung's
+        matrices, already built from these tables by ``walk_tables``). With
+        ``gather_impl="pallas"`` it also builds the backward kernel's layouts
+        (``full_graph_layouts``).
         Under a row shard the operators are built for the rank's rows and
         the rank keeps its rows of the tables.
 
@@ -273,7 +304,7 @@ class Trainer:
 
         old = (self.nbr_tables, self.pool_mats, self.bwd_layouts)
         if not (self.graphs.graphs and self._fits_twice(old)):
-            self.graphs.drop()
+            self.graphs.drop(programs=False)      # the refresh reads no tables
             old = None
         self.nbr_tables = [(on_device(nb, torch.int32), on_device(w, torch.float32))
                            for nb, w in tables]
@@ -285,7 +316,7 @@ class Trainer:
         pooled = (self.cfg.model.aggregator_type == "importance"
                   and self.cfg.train.train_path != "mlp")
         if pooled:
-            self.pool_mats = self._pool_operators()
+            self.pool_mats = self._pool_operators(dense)
         if self.shard is not None:
             rows = slice(self.shard.start, self.shard.stop)
             self.nbr_tables = [(nb[rows], w[rows]) for nb, w in self.nbr_tables]
@@ -296,7 +327,7 @@ class Trainer:
             if copy_into(old, new):
                 self.nbr_tables, self.pool_mats, self.bwd_layouts = old
             else:
-                self.graphs.drop()
+                self.graphs.drop(programs=False)
 
     def _fits_twice(self, tables_and_operators) -> bool:
         """Whether a second set of tables, operators and layouts of this
@@ -327,7 +358,7 @@ class Trainer:
                 layouts.append(None)
         return layouts
 
-    def _pool_operators(self) -> tuple:
+    def _pool_operators(self, dense: tuple | None = None) -> tuple:
         """The pooling rung, as the JAX trainer picks it: ``dense`` (one
         [N, N] matrix per layer), ``hybrid`` (matrices for layers 0..L-2,
         gather for the last), ``hub`` (a ``HubPool`` for layers 0..L-2, and
@@ -338,16 +369,14 @@ class Trainer:
         more mass than its gate (after one doubling of the residual), then
         gather when a block layer does. Under a row shard each operator
         holds the rank's rows (a block operator its row blocks, where they
-        divide the model axis)."""
+        divide the model axis). ``dense`` holds the dense rung's matrices
+        where they were built already."""
         m = self.cfg.model
         impl, n_layers, rows = m.pool_impl, m.num_layers, self.table_rows
-        n_dense = n_hub = n_block = 0
-        if impl == "dense" or (impl == "auto" and rows <= m.dense_pool_max_rows):
-            n_dense = n_layers
-        elif n_layers > 1 and (impl == "hybrid" or (
-                impl == "auto" and rows <= m.dense_pool_hybrid_max_rows)):
-            n_dense = n_layers - 1
-        elif n_layers > 1 and impl == "block":
+        n_dense, n_hub, n_block = self._dense_layers(), 0, 0
+        if n_dense:
+            return dense if dense is not None else self._dense_matrices(self.nbr_tables, n_dense)
+        if n_layers > 1 and impl == "block":
             n_block = n_layers - 1
         elif n_layers > 1 and impl in ("hub", "auto"):
             hub_final = m.hub_pool_final_layer
@@ -366,17 +395,36 @@ class Trainer:
                 n_block = n_hub
         if n_block:
             return self._block_operators(n_block)
-        if n_dense:
-            pool_dtype = hub_mod.resolve_pool_matrix_dtype(m.pool_matrix_dtype, rows, "dense")
-            # Cast after the bf16 build, as JAX does (a scatter-add into
-            # float8 would round every addition).
-            mine = slice(None) if self.shard is None else slice(self.shard.start, self.shard.stop)
-            return tuple(
-                pinsage.build_pool_matrix(nbrs[mine], w[mine], num_cols=rows,
-                                          valid_limit=self.valid_limit,
-                                          dtype=torch.bfloat16).to(pool_dtype)
-                for nbrs, w in self.nbr_tables[:n_dense])
         return ()
+
+    def _dense_layers(self) -> int:
+        """How many leading layers pool through [N, N] matrices: every layer
+        on the dense rung, all but the last on the hybrid rung, else 0 (no
+        pooling, or another rung)."""
+        m = self.cfg.model
+        impl, n_layers, rows = m.pool_impl, m.num_layers, self.table_rows
+        if m.aggregator_type != "importance" or self.cfg.train.train_path == "mlp":
+            return 0
+        if impl == "dense" or (impl == "auto" and rows <= m.dense_pool_max_rows):
+            return n_layers
+        if n_layers > 1 and (impl == "hybrid" or (
+                impl == "auto" and rows <= m.dense_pool_hybrid_max_rows)):
+            return n_layers - 1
+        return 0
+
+    def _dense_matrices(self, tables, n_dense: int) -> tuple:
+        """The [N (the rank's rows under a shard), N] pool matrix of each of
+        the first ``n_dense`` tables, cast to ``pool_dtype`` after the bf16
+        build, as JAX does (a scatter-add into float8 would round every
+        addition)."""
+        pool_dtype = hub_mod.resolve_pool_matrix_dtype(self.cfg.model.pool_matrix_dtype,
+                                                       self.table_rows, "dense")
+        mine = slice(None) if self.shard is None else slice(self.shard.start, self.shard.stop)
+        return tuple(
+            pinsage.build_pool_matrix(nbrs[mine], w[mine], num_cols=self.table_rows,
+                                      valid_limit=self.valid_limit,
+                                      dtype=torch.bfloat16).to(pool_dtype)
+            for nbrs, w in tables[:n_dense])
 
     def _hub_operators(self, n_hub: int) -> tuple:
         """One ``HubPool`` for each of the first ``n_hub`` layers, the slab
@@ -661,7 +709,8 @@ class Trainer:
             return out
         return eval_metrics.evaluate_embeddings(
             emb, pairs, k_values=self.cfg.eval.k_values,
-            mrr_scale=self.cfg.eval.mrr_scale)
+            mrr_scale=self.cfg.eval.mrr_scale, graphs=self.graphs.programs,
+            graphed=self.graphed)
 
 
     # ---- checkpoint / resume ----------------------------------------------
@@ -749,9 +798,11 @@ class Trainer:
                 if cap is not None and vp.shape[0] > cap:
                     vp = vp[np.random.default_rng(cfg.train.seed + 7).choice(
                         vp.shape[0], size=cap, replace=False)]
+                t0 = time.perf_counter()
                 val = self.evaluate(vp)
                 val_metric = val[f"hit_rate@{min(cfg.eval.k_values)}"]
                 stats.update({f"val_{k}": v for k, v in val.items()})
+                stats["val_seconds"] = time.perf_counter() - t0
 
             # Plateau on the train loss (min mode) or on the val metric (max
             # mode, by negation; epochs without validation leave it as is).
