@@ -21,6 +21,14 @@ Design:
   use and is captured at its second. Each capture logs ``search_graph`` (a
   ``MetricsLogger`` on stdout, as the trainer's) and is kept on
   ``index.graphs.events``.
+- The worker's program spans (``core.logging.span``, recorded while the
+  recorder is on): ``server.wait`` (queue empty), ``server.linger`` (first
+  request seen to batch taken) and ``server.batch`` (batch taken to every
+  answer set; children ``server.pack``, ``server.search`` through the copy
+  back, ``server.answer``), which carries its requests' ``ids`` and
+  ``submitted_ns``: a request's queue wait is its submit time to its
+  batch's start. ``ServerStats`` keeps the queue wait and the batch's
+  service time of every request, always.
 
 Query forms:
 - by item: embedding row of ``movie_idx`` (self excluded from results);
@@ -31,6 +39,7 @@ Query forms:
 
 from __future__ import annotations
 
+import itertools
 import json
 import threading
 import time
@@ -40,7 +49,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..core.logging import MetricsLogger
+from ..core.logging import MetricsLogger, span
 from .bench import make_index
 
 
@@ -62,13 +71,17 @@ class _Request:
     query: np.ndarray            # [D] f32
     k: int
     exclude: np.ndarray          # int32 item indices to drop from results
+    id: int                      # the server's count of submits, from 1
     future: Future = field(default_factory=Future)
-    t_submit: float = field(default_factory=time.perf_counter)
+    t_submit_ns: int = field(default_factory=time.time_ns)   # the spans' clock
 
 
 class ServerStats:
     """Latency / batching counters (thread-safe, lock held by caller).
-    Bounded ring buffers — a persistent server must not grow without limit."""
+    Bounded ring buffers — a persistent server must not grow without limit.
+    Per request: latency (submit to its batch's search copied back), queue
+    wait (submit to its batch taken, linger included) and service (its
+    batch taken to every answer of the batch set)."""
 
     WINDOW = 10_000
 
@@ -76,10 +89,14 @@ class ServerStats:
         self.num_requests = 0
         self.num_batches = 0
         self.latencies_ms: deque[float] = deque(maxlen=self.WINDOW)
+        self.queue_ms: deque[float] = deque(maxlen=self.WINDOW)
+        self.service_ms: deque[float] = deque(maxlen=self.WINDOW)
         self.batch_sizes: deque[int] = deque(maxlen=self.WINDOW)
 
     def snapshot(self) -> dict:
         lat = np.asarray(self.latencies_ms or [0.0])
+        queue = np.asarray(self.queue_ms or [0.0])
+        service = np.asarray(self.service_ms or [0.0])
         return {
             "num_requests": self.num_requests,
             "num_batches": self.num_batches,
@@ -87,6 +104,10 @@ class ServerStats:
             "latency_ms_p50": float(np.percentile(lat, 50)),
             "latency_ms_p95": float(np.percentile(lat, 95)),
             "latency_ms_p99": float(np.percentile(lat, 99)),
+            "queue_ms_p50": float(np.percentile(queue, 50)),
+            "queue_ms_p99": float(np.percentile(queue, 99)),
+            "service_ms_p50": float(np.percentile(service, 50)),
+            "service_ms_p99": float(np.percentile(service, 99)),
         }
 
 
@@ -123,6 +144,7 @@ class BatchingRecommender:
         self.method = method
 
         self._queue: list[_Request] = []
+        self._ids = itertools.count(1)
         self._lock = threading.Lock()
         self._not_empty = threading.Condition(self._lock)
         self._stats = ServerStats()
@@ -169,7 +191,7 @@ class BatchingRecommender:
             raise ValueError(f"k must be >= 1, got {k}")
         k = int(min(k, self.max_k))
         req = _Request(query.astype(np.float32), k,
-                       np.asarray(exclude, np.int64))
+                       np.asarray(exclude, np.int64), next(self._ids))
         with self._not_empty:
             if self._closed:
                 raise RuntimeError("server is closed")
@@ -195,65 +217,78 @@ class BatchingRecommender:
 
     # -- worker -------------------------------------------------------------
 
-    def _take_batch(self) -> list[_Request]:
+    def _take_batch(self) -> tuple[list[_Request], int]:
         """Block until >=1 request, then linger up to ``max_wait_s`` to let a
-        batch accumulate (never lingers when the bucket is already full)."""
+        batch accumulate (never lingers when the bucket is already full).
+        Returns the batch and when it was taken (``time.time_ns``)."""
         with self._not_empty:
-            while not self._queue and not self._closed:
-                self._not_empty.wait(timeout=0.1)
+            if not self._queue and not self._closed:
+                with span("server.wait"):
+                    while not self._queue and not self._closed:
+                        self._not_empty.wait(timeout=0.1)
             if self._closed and not self._queue:
-                return []
-            deadline = self._queue[0].t_submit + self.max_wait_s
-            while (len(self._queue) < self.max_batch and not self._closed
-                   and (remaining := deadline - time.perf_counter()) > 0):
-                self._not_empty.wait(timeout=remaining)
-            batch, self._queue = (self._queue[: self.max_batch],
-                                  self._queue[self.max_batch:])
-            return batch
+                return [], 0
+            with span("server.linger"):
+                deadline = self._queue[0].t_submit_ns + int(self.max_wait_s * 1e9)
+                while (len(self._queue) < self.max_batch and not self._closed
+                       and (remaining := deadline - time.time_ns()) > 0):
+                    self._not_empty.wait(timeout=remaining / 1e9)
+                batch, self._queue = (self._queue[: self.max_batch],
+                                      self._queue[self.max_batch:])
+                return batch, time.time_ns()
 
     def _run(self) -> None:
         while True:
-            batch = self._take_batch()
+            batch, taken_ns = self._take_batch()
             if not batch:
                 return
             try:
-                self._execute(batch)
+                self._execute(batch, taken_ns)
             except Exception as e:  # resolve futures; never kill the worker
                 for r in batch:
                     if not r.future.done():
                         r.future.set_exception(e)
 
-    def _execute(self, batch: list[_Request]) -> None:
+    def _execute(self, batch: list[_Request], taken_ns: int) -> None:
         n = len(batch)
-        bucket = next(b for b in self._bucket_sizes if b >= n)
-        q = np.zeros((bucket, self.dim), np.float32)
-        q[:n] = np.stack([r.query for r in batch])
-        # Over-fetch enough that exclusion can't starve any request in the
-        # batch; pow2-bucket the occasional large-exclude searches so the
-        # set of search shapes stays bounded.
-        need = max(r.k + len(r.exclude) for r in batch)
-        search_k = (self._search_k if need <= self._search_k
-                    else min(_next_pow2(need), self.ntotal))
-        d, i = self.index.search(q, k=search_k)
-        d, i = d.cpu().numpy(), i.cpu().numpy()   # host copy = sync
-        now = time.perf_counter()
-        for row, r in enumerate(batch):
-            idx, dist = i[row], d[row]
-            keep = ~np.isin(idx, r.exclude) & (idx >= 0)
-            idx, dist = idx[keep][: r.k], dist[keep][: r.k]
-            r.future.set_result(
-                {"indices": idx.tolist(),
-                 # All indexes return distances (smaller = closer); expose
-                 # score = -distance like cli recommend's non-exact path.
-                 "scores": (-dist).tolist()}
-            )
+        with span("server.batch", start_ns=taken_ns) as sp:
+            if sp.recorded:
+                sp.attrs["ids"] = [r.id for r in batch]
+                sp.attrs["submitted_ns"] = [r.t_submit_ns for r in batch]
+            with span("server.pack"):
+                bucket = next(b for b in self._bucket_sizes if b >= n)
+                q = np.zeros((bucket, self.dim), np.float32)
+                q[:n] = np.stack([r.query for r in batch])
+                # Over-fetch enough that exclusion can't starve any request
+                # in the batch; pow2-bucket the occasional large-exclude
+                # searches so the set of search shapes stays bounded.
+                need = max(r.k + len(r.exclude) for r in batch)
+                search_k = (self._search_k if need <= self._search_k
+                            else min(_next_pow2(need), self.ntotal))
+            with span("server.search"):
+                d, i = self.index.search(q, k=search_k)
+                d, i = d.cpu().numpy(), i.cpu().numpy()   # host copy = sync
+            now = time.time_ns()
+            with span("server.answer"):
+                for row, r in enumerate(batch):
+                    idx, dist = i[row], d[row]
+                    keep = ~np.isin(idx, r.exclude) & (idx >= 0)
+                    idx, dist = idx[keep][: r.k], dist[keep][: r.k]
+                    r.future.set_result(
+                        {"indices": idx.tolist(),
+                         # All indexes return distances (smaller = closer);
+                         # expose score = -distance like cli recommend's
+                         # non-exact path.
+                         "scores": (-dist).tolist()}
+                    )
+        service_ms = (time.time_ns() - taken_ns) / 1e6
         with self._lock:
             self._stats.num_requests += n
             self._stats.num_batches += 1
             self._stats.batch_sizes.append(n)
-            self._stats.latencies_ms.extend(
-                (now - r.t_submit) * 1e3 for r in batch
-            )
+            self._stats.latencies_ms.extend((now - r.t_submit_ns) / 1e6 for r in batch)
+            self._stats.queue_ms.extend((taken_ns - r.t_submit_ns) / 1e6 for r in batch)
+            self._stats.service_ms.extend([service_ms] * n)
 
 
 # ---------------------------------------------------------------------------

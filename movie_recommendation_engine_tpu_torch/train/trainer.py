@@ -40,6 +40,14 @@ refresh (``walk_tables``, with the dense rung's pool matrices) and one of
 the ranks (``evaluate``), kept in ``graphs.programs`` under the same rules
 as the step graphs; the hub and block operators and the segment layouts are
 built eager (host gates pick the rung and its shapes).
+
+Program spans (``core.logging.span``) mark the epoch's parts:
+``trainer.refresh`` (``.walks``, ``.pool_build``), ``trainer.epoch_batches``,
+``trainer.steps`` (the block loop through the loss readback) and
+``trainer.evaluate`` (``.embed``, ``.ranks``); ``fit`` adds ``trainer.epoch``.
+The ``neighborhoods`` event's ``seconds``, ``step_wall_seconds`` and ``fit``'s
+``epoch_seconds`` and ``val_seconds`` are their spans' durations. Spans wrap
+replays, never a capture.
 """
 
 from __future__ import annotations
@@ -55,7 +63,7 @@ from ..config import Config
 from ..core import checkpoint as ckpt
 from ..core import tree
 from ..core.device import resolve_device
-from ..core.logging import MetricsLogger
+from ..core.logging import MetricsLogger, span
 from ..evaluation import metrics as eval_metrics
 from ..graph import features as feat_mod
 from ..graph.dataset import MovieLensData
@@ -199,6 +207,7 @@ class Trainer:
         self.graphs = StepGraphs(self.device, self.generator, self.log)
         self.epoch = 0
         self.best_metric = -float("inf")
+        self.eval_seconds: float | None = None    # seconds of the last ``evaluate``
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         self.pool_mats: tuple = ()
         self.bwd_layouts: list | None = None
@@ -245,11 +254,13 @@ class Trainer:
             self.log.log("ppr_tables", rows=self.table_rows, batch=cfg.walk.ppr_batch)
             dense = None
         elif cfg.walk.strategy == "random_walk":
-            tables, dense = self.walk_tables()
+            with span("trainer.refresh.walks", sync=self.device):
+                tables, dense = self.walk_tables()
         else:
             raise ValueError(f"unknown walk.strategy {cfg.walk.strategy!r} "
                              "(expected 'random_walk' or 'ppr')")
-        self.set_neighborhood_tables(tables, dense)
+        with span("trainer.refresh.pool_build", sync=self.device):
+            self.set_neighborhood_tables(tables, dense)
 
     def _count_below(self) -> int | None:
         """The walks count only movie nodes of a bipartite graph
@@ -631,31 +642,31 @@ class Trainer:
         refresh = cfg.train.refresh_neighborhoods_every
         refresh_s = 0.0
         if self.nbr_tables is None or (refresh and epoch % refresh == 0):
-            t0 = time.perf_counter()
-            self.refresh_neighborhoods()
-            self._sync()
-            refresh_s = time.perf_counter() - t0
+            with span("trainer.refresh", timed=True) as sp:
+                self.refresh_neighborhoods()
+                self._sync()
+            refresh_s = sp.seconds
             self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s)
 
-        q_all, p_all, block, s_total, num_hard = self.epoch_batches(epoch)
+        with span("trainer.epoch_batches"):
+            q_all, p_all, block, s_total, num_hard = self.epoch_batches(epoch)
+            self._sync()
         step_losses = []
-        self._sync()
-        t0 = time.perf_counter()
         t_after_first = None
-        for s0 in range(0, q_all.shape[0], block):
-            step_losses.append(self.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block],
-                                                self.plateau.lr, float(epoch), num_hard))
-            if t_after_first is None:
-                self._sync()
-                t_after_first = time.perf_counter()
-        all_losses = torch.cat(step_losses).cpu().numpy()[:s_total]
-        t_end = time.perf_counter()
+        with span("trainer.steps", timed=True) as steps:
+            for s0 in range(0, q_all.shape[0], block):
+                step_losses.append(self.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block],
+                                                    self.plateau.lr, float(epoch), num_hard))
+                if t_after_first is None:
+                    self._sync()
+                    t_after_first = time.time_ns()
+            all_losses = torch.cat(step_losses).cpu().numpy()[:s_total]
 
         bsz = int(q_all.shape[1])
         n_timed_steps = q_all.shape[0] - block
-        timed_s = t_end - t_after_first
+        timed_s = (steps.end_ns - t_after_first) / 1e9
         exps = (bsz * n_timed_steps / timed_s if n_timed_steps and timed_s > 0
-                else bsz * block / max(t_after_first - t0, 1e-9))
+                else bsz * block / max((t_after_first - steps.start_ns) / 1e9, 1e-9))
         return {
             "loss": float(all_losses.mean()),
             "examples_per_sec": exps,
@@ -664,7 +675,7 @@ class Trainer:
             "step_ms_avg": timed_s / n_timed_steps * 1e3 if n_timed_steps else float("nan"),
             "num_hard": num_hard,
             "refresh_seconds": round(refresh_s, 2),
-            "step_wall_seconds": round(t_end - t0, 2),
+            "step_wall_seconds": round(steps.seconds, 2),
         }
 
     # ---- inference / eval -------------------------------------------------
@@ -696,8 +707,17 @@ class Trainer:
         return emb[:m]
 
     def evaluate(self, pairs: np.ndarray | None = None, params=None) -> dict[str, float]:
-        pairs = self.test_pairs if pairs is None else pairs
-        emb = self.movie_embeddings(params)
+        """HR@k / MRR of ``pairs`` (the test pairs if None) over the
+        embedding pass at ``params``; its duration is kept in
+        ``eval_seconds``."""
+        with span("trainer.evaluate", timed=True) as sp:
+            out = self._evaluate(self.test_pairs if pairs is None else pairs, params)
+        self.eval_seconds = sp.seconds
+        return out
+
+    def _evaluate(self, pairs: np.ndarray | None, params) -> dict[str, float]:
+        with span("trainer.evaluate.embed", sync=self.device):
+            emb = self.movie_embeddings(params)
         if pairs is None or pairs.shape[0] == 0:
             # No interaction-derived pairs: genre-similarity fallback.
             from ..evaluation.fallback import evaluate_genre_similarity
@@ -707,10 +727,11 @@ class Trainer:
                 mrr_scale=self.cfg.eval.mrr_scale, seed=self.cfg.train.seed)
             out["fallback"] = "genre_similarity"
             return out
-        return eval_metrics.evaluate_embeddings(
-            emb, pairs, k_values=self.cfg.eval.k_values,
-            mrr_scale=self.cfg.eval.mrr_scale, graphs=self.graphs.programs,
-            graphed=self.graphed)
+        with span("trainer.evaluate.ranks"):
+            return eval_metrics.evaluate_embeddings(
+                emb, pairs, k_values=self.cfg.eval.k_values,
+                mrr_scale=self.cfg.eval.mrr_scale, graphs=self.graphs.programs,
+                graphed=self.graphed)
 
 
     # ---- checkpoint / resume ----------------------------------------------
@@ -786,9 +807,9 @@ class Trainer:
 
         for epoch in range(self.epoch, cfg.train.epochs):
             self.epoch = epoch
-            t0 = time.perf_counter()
-            stats = self.train_epoch(epoch)
-            stats["epoch_seconds"] = time.perf_counter() - t0
+            with span("trainer.epoch", timed=True) as sp:
+                stats = self.train_epoch(epoch)
+            stats["epoch_seconds"] = sp.seconds
 
             val_metric = None
             if (cfg.eval.eval_every and (epoch + 1) % cfg.eval.eval_every == 0
@@ -798,11 +819,10 @@ class Trainer:
                 if cap is not None and vp.shape[0] > cap:
                     vp = vp[np.random.default_rng(cfg.train.seed + 7).choice(
                         vp.shape[0], size=cap, replace=False)]
-                t0 = time.perf_counter()
                 val = self.evaluate(vp)
                 val_metric = val[f"hit_rate@{min(cfg.eval.k_values)}"]
                 stats.update({f"val_{k}": v for k, v in val.items()})
-                stats["val_seconds"] = time.perf_counter() - t0
+                stats["val_seconds"] = self.eval_seconds
 
             # Plateau on the train loss (min mode) or on the val metric (max
             # mode, by negation; epochs without validation leave it as is).
