@@ -962,11 +962,11 @@ def check_bwd(pool, table, nbrs, w, limit, g, what: str, route: str) -> dict:
 def check_segment(pool, table, nbrs, w, limit, g, what: str) -> float:
     """The plan kernel's chunks, splits and totals equal to
     ``segment_plan_plain``'s from the same row pointers; the segment route's
-    d_table, from a layout built ahead and from one built by the call,
-    bitwise equal to ``gather_pool_bwd_segment_plain`` and the calls
-    bitwise equal to each other. Returns the largest |kernel - plain| (0
-    when bitwise equal)."""
-    lay = pool.segment_layout(nbrs, limit)
+    d_table, from a layout built ahead (with the weights, as the call and
+    the trainer build it) and from one built by the call, bitwise equal to
+    ``gather_pool_bwd_segment_plain`` and the calls bitwise equal to each
+    other. Returns the largest |kernel - plain| (0 when bitwise equal)."""
+    lay = pool.segment_layout(nbrs, limit, weights=w)
     plan = pool.segment_plan_plain(lay.row_ptr, lay.chunk, lay.chunks.shape[0],
                                    lay.splits.shape[0])
     c, s, _ = plan[2].tolist()
@@ -1269,7 +1269,8 @@ def hub_kernel_times(dev, hp, n: int, d: int, rows, what: str) -> dict:
     forward against its plain version (1e-4), the segment backward bitwise
     against its plain version, both timed beside their bounds, their plain
     versions and ``embedding_bag`` (forward, and its backward in the
-    table); the segment layout's row 0, where the padding slots go."""
+    table); the segment layout's row 0, built with the weights as the
+    trainer builds it, so that the padding slots (weight 0) are left out."""
     from movie_recommendation_engine_tpu_torch.core import roofline
     from movie_recommendation_engine_tpu_torch.ops import pool
 
@@ -1281,7 +1282,7 @@ def hub_kernel_times(dev, hp, n: int, d: int, rows, what: str) -> dict:
     fwd_err = check_pool_routes(pool, table, nbrs, w, n, what)
     bwd_err = check_segment(pool, table, nbrs, w, n, g, what)
     vs_index_add = check_bwd(pool, table, nbrs, w, n, g, what, "segment")
-    lay = pool.segment_layout(nbrs, n)
+    lay = pool.segment_layout(nbrs, n, weights=w)
     chunks, splits, parts = lay.totals.tolist()
     fwd = timed(lambda: pool.gather_pool(table, nbrs, w, n))
     seg = timed(lambda: pool.gather_pool_bwd(table, nbrs, w, n, g, need_weights=False,
@@ -1315,6 +1316,7 @@ def hub_kernel_times(dev, hp, n: int, d: int, rows, what: str) -> dict:
                          "library": lib_bwd, "max_abs_err_vs_plain_segment": bwd_err,
                          "vs_index_add": vs_index_add,
                          "chunks": chunks, "split_rows": splits, "parts": parts,
+                         "zero_weight_slots": int((w == 0).sum()),
                          "row0_slots": int(lay.row_ptr[1] - lay.row_ptr[0]),
                          "row0_chunks": int((lay.chunks[:chunks, 0] == 0).sum())}}
 

@@ -13,12 +13,19 @@
 //     d_table[r, :] = sum over valid (b, k) with idx[b, k] == r of w[b, k] * g[b, :]
 //
 // in f32, written in the table's dtype (bf16 rounds to nearest even, as
-// torch's cast); rows r in [limit, N) are 0. The weights' gradient stays with
+// torch's cast); rows r in [limit, N) are 0. Slots of weight 0 add nothing
+// and may be left out of the layout (below). The weights' gradient stays with
 // gather_pool_bwd.cu.
 //
 // The layout (ops/pool.py:segment_layout) lists the flat slots b * K + k of
 // the valid slots grouped by id, ascending within each id (a stable sort in
-// tensor code), and cuts each id's run into chunks of at most `chunk` slots:
+// tensor code), and cuts each id's run into chunks of at most `chunk` slots.
+// A valid slot has an id in [0, limit) and, where the layout was built with
+// the weights, a nonzero weight: the hub residual pads its rows with id 0 and
+// weight 0, and those slots, which add 0 * g, would otherwise gather on row 0
+// (~186k slots of a 59k-row table, ~5.8k partials that pass 2 sums on one
+// warp). Such a layout serves only calls whose weights are 0 wherever its
+// weights were; the kernels read only the slots the layout lists. The chunks:
 // one int4 (row, start, end, part) per chunk, every id in [0, limit) present
 // once or more (an id without slots as one empty chunk). part is -1 where the
 // chunk is its row's only one, else the index of the f32 partial sum it

@@ -226,7 +226,8 @@ def gather_pool(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tensor,
     forces ``"direct"`` or ``"resident"`` on the card (tests and
     ``chip_smoke.py``); ``None`` lets ``plan`` pick. Differentiable in
     ``table`` and ``weights``; ``bwd_layout`` is ``segment_layout(nbrs,
-    valid_limit)`` built ahead for the backward (else it builds one)."""
+    valid_limit[, weights=weights])`` built ahead for the backward (else it
+    builds one)."""
     _check(table, nbrs, weights, valid_limit)
     if route not in (None, *ROUTES):
         raise ValueError(f"route must be one of {ROUTES} or None, got {route!r}")
@@ -325,7 +326,11 @@ def gather_pool_bwd_plain(table: torch.Tensor, nbrs: torch.Tensor, weights: torc
 
 class SegmentLayout(NamedTuple):
     """The transpose of a [B, K] walk table over its valid slots (ids in
-    ``[0, limit)``), built by ``segment_layout`` for ``shape`` and ``limit``.
+    ``[0, limit)``, and a nonzero weight where the layout was built with
+    weights), built by ``segment_layout`` for ``shape`` and ``limit``.
+    A layout built with weights is valid only for calls whose weights are
+    0 wherever its weights were: a zero-weight slot adds ``0 * g``, so
+    leaving it out changes no sum but its rounding order.
 
     ``slots`` [B * K] holds the flat slot ``b * K + k`` of every slot,
     grouped by id and ascending within each id, the masked slots last; id
@@ -351,16 +356,24 @@ class SegmentLayout(NamedTuple):
     totals: torch.Tensor        # int32 [3]: C, S, P
 
 
-def segment_layout(nbrs: torch.Tensor, valid_limit: int,
-                   chunk: int = SEGMENT_CHUNK) -> SegmentLayout:
+def segment_layout(nbrs: torch.Tensor, valid_limit: int, chunk: int = SEGMENT_CHUNK,
+                   weights: torch.Tensor | None = None) -> SegmentLayout:
     """The ``SegmentLayout`` of ``nbrs`` [B, K] for ids in
     ``[0, valid_limit)``, on ``nbrs``' device: a stable sort of the ids
     (masked slots sort last; 16-bit keys where the ids fit), row pointers
     by ``searchsorted``, then the chunk plan: on the card the kernel
     ``csrc/gather_pool_bwd_segment.cu:segment_plan_kernel``, which reads
-    nothing back to the host; on the CPU ``segment_plan_plain``."""
+    nothing back to the host; on the CPU ``segment_plan_plain``.
+
+    With ``weights`` [B, K], a slot whose weight is exactly 0 is masked
+    too, so a table padded with (id 0, weight 0), as the hub residual is,
+    does not pile its padding onto row 0 for one warp to sum. Without
+    them, every slot with an id in range is kept."""
     if nbrs.dim() != 2:
         raise ValueError(f"expected nbrs [B, K], got {tuple(nbrs.shape)}")
+    if weights is not None and (weights.shape != nbrs.shape or weights.device != nbrs.device):
+        raise ValueError(f"weights must be {tuple(nbrs.shape)} on {nbrs.device}, got "
+                         f"{tuple(weights.shape)} on {weights.device}")
     b, k = nbrs.shape
     if not 1 <= valid_limit < 2**31 - 1 or b * k >= 2**31:
         raise ValueError(f"valid_limit={valid_limit}, B*K={b * k}: the layout takes "
@@ -370,7 +383,10 @@ def segment_layout(nbrs: torch.Tensor, valid_limit: int,
     dev = nbrs.device
     flat = nbrs.reshape(-1)
     key_t = torch.int16 if valid_limit < 2**15 - 1 else torch.int32
-    key = torch.where((flat >= 0) & (flat < valid_limit), flat, valid_limit).to(key_t)
+    keep = (flat >= 0) & (flat < valid_limit)
+    if weights is not None:
+        keep &= weights.reshape(-1) != 0
+    key = torch.where(keep, flat, valid_limit).to(key_t)
     sorted_key, order = torch.sort(key, stable=True)
     row_ptr = torch.searchsorted(sorted_key, torch.arange(valid_limit + 1, dtype=key_t,
                                                           device=dev), out_int32=True)
@@ -530,9 +546,10 @@ def _bwd_limits(n: int, d: int, b: int, k: int, chunk: int = SEGMENT_CHUNK) -> N
 def _segment_d_table(table, nbrs, weights, valid_limit, g, layout) -> torch.Tensor:
     """The segment route's d_table [N, D] in the table's dtype: pass 1 and
     pass 2 (one C call), their grids sized by the layout's bounds; the
-    kernels read the true counts from ``layout.totals``."""
+    kernels read the true counts from ``layout.totals``. A layout built
+    here leaves out the zero-weight slots."""
     if layout is None:
-        layout = segment_layout(nbrs, valid_limit)
+        layout = segment_layout(nbrs, valid_limit, weights=weights)
     n, d = table.shape
     out = torch.empty((n, d), dtype=table.dtype, device=table.device)
     # Every partial belongs to a chunk: at most as many as chunks.
@@ -563,8 +580,9 @@ def gather_pool_bwd(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tens
     (d_table [N, D] in the table's dtype or None, d_w [B, K] f32 or None),
     each computed only when asked for. On a CUDA tensor the kernels, else
     ``gather_pool_bwd_plain``. ``route`` is ``"segment"`` (deterministic;
-    ``layout`` is ``segment_layout(nbrs, valid_limit)``, built here when
-    None) or ``"atomic"`` (f32 atomics; takes no layout)."""
+    ``layout`` is ``segment_layout(nbrs, valid_limit, weights=weights)``,
+    or one without weights; built here with them when None) or
+    ``"atomic"`` (f32 atomics; takes no layout)."""
     _check(table, nbrs, weights, valid_limit)
     if route not in BWD_ROUTES:
         raise ValueError(f"route must be one of {BWD_ROUTES}, got {route!r}")

@@ -47,7 +47,9 @@ Program spans (``core.logging.span``) mark the epoch's parts:
 ``trainer.evaluate`` (``.embed``, ``.ranks``); ``fit`` adds ``trainer.epoch``.
 The ``neighborhoods`` event's ``seconds``, ``step_wall_seconds`` and ``fit``'s
 ``epoch_seconds`` and ``val_seconds`` are their spans' durations. Spans wrap
-replays, never a capture.
+replays, never a capture. Where the backward kernel's layouts are built, the
+event's ``bwd_zero_weight_share`` gives, per layout, the share of its table's
+slots left out for a weight of 0.
 """
 
 from __future__ import annotations
@@ -211,6 +213,9 @@ class Trainer:
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         self.pool_mats: tuple = ()
         self.bwd_layouts: list | None = None
+        # Per layout, the share of slots it leaves out for a weight of 0
+        # (on the device; read back for the ``neighborhoods`` event).
+        self.bwd_zero_weight_share: torch.Tensor | None = None
         self._block_perm: np.ndarray | None = None   # block rung's node order
         # Steps per block of an epoch (see train_epoch).
         self.steps_per_call = 8
@@ -323,7 +328,7 @@ class Trainer:
         # for the graphs above): at scale two sets do not fit on the card
         # together.
         self.pool_mats = ()
-        self.bwd_layouts = None
+        self.bwd_layouts = self.bwd_zero_weight_share = None
         pooled = (self.cfg.model.aggregator_type == "importance"
                   and self.cfg.train.train_path != "mlp")
         if pooled:
@@ -333,6 +338,7 @@ class Trainer:
             self.nbr_tables = [(nb[rows], w[rows]) for nb, w in self.nbr_tables]
         if pooled and self.gather_impl == "pallas":
             self.bwd_layouts = self.full_graph_layouts()
+            self.bwd_zero_weight_share = self._zero_weight_shares()
         if old is not None:
             new = (self.nbr_tables, self.pool_mats, self.bwd_layouts)
             if copy_into(old, new):
@@ -348,26 +354,46 @@ class Trainer:
         size = sum(t.numel() * t.element_size() for t in tensors(tables_and_operators))
         return 2 * size <= torch.cuda.mem_get_info(self.device)[0]
 
-    def full_graph_layouts(self) -> list:
-        """``ops.pool.segment_layout`` of each full-graph layer's gather
-        table, for the backward kernel: a gather layer's walk table (limit
-        ``valid_limit``), a hub layer's residual ids (limit N, as the
-        residual pools over the whole table); None for a dense or block
-        layer. Layers 0..L-2 pool the whole graph with the same tables
-        until the next refresh (the last layer pools the batch's rows).
-        Under a row shard: the rank's rows, with global ids."""
+    def _full_graph_gathers(self) -> list:
+        """Per full-graph layer, the (ids, weights, limit) its gather pools:
+        a gather layer's walk table (limit ``valid_limit``), a hub layer's
+        residual (limit N, as the residual pools over the whole table);
+        None for a dense or block layer. Layers 0..L-2 pool the whole graph
+        with the same tables until the next refresh (the last layer pools
+        the batch's rows). Under a row shard: the rank's rows, with global
+        ids."""
         limit = min(self.valid_limit, self.table_rows)
-        layouts = []
+        gathers = []
         for i in range(self.cfg.model.num_layers - 1):
             pm = self.pool_mats[i] if i < len(self.pool_mats) else None
             if isinstance(pm, HubPool):
-                layouts.append(segment_layout(pm.res_nbrs, self.table_rows))
+                gathers.append((pm.res_nbrs, pm.res_w, self.table_rows))
             elif pm is None:
-                layouts.append(segment_layout(
-                    self.nbr_tables[min(i, len(self.nbr_tables) - 1)][0], limit))
+                gathers.append((*self.nbr_tables[min(i, len(self.nbr_tables) - 1)], limit))
             else:
-                layouts.append(None)
-        return layouts
+                gathers.append(None)
+        return gathers
+
+    def full_graph_layouts(self) -> list:
+        """``ops.pool.segment_layout`` of each full-graph layer's gather
+        (``_full_graph_gathers``) for the backward kernel, built with its
+        weights, so that the slots of weight 0 (the hub residual's padding)
+        are left out; None for a dense or block layer."""
+        return [None if gt is None else segment_layout(gt[0], gt[2], weights=gt[1])
+                for gt in self._full_graph_gathers()]
+
+    def _zero_weight_shares(self) -> torch.Tensor | None:
+        """Per layout of ``bwd_layouts``, on the device: the share of its
+        table's slots that it leaves out for a weight of 0 (the slots with
+        an id in range less those it keeps), or None without layouts."""
+        shares = []
+        for lay, gt in zip(self.bwd_layouts or (), self._full_graph_gathers()):
+            if lay is not None:
+                nbrs, _, limit = gt
+                kept = lay.row_ptr[-1]
+                in_range = ((nbrs >= 0) & (nbrs < limit)).sum()
+                shares.append((in_range - kept).float() / max(nbrs.numel(), 1))
+        return torch.stack(shares) if shares else None
 
     def _pool_operators(self, dense: tuple | None = None) -> tuple:
         """The pooling rung, as the JAX trainer picks it: ``dense`` (one
@@ -646,7 +672,9 @@ class Trainer:
                 self.refresh_neighborhoods()
                 self._sync()
             refresh_s = sp.seconds
-            self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s)
+            zero = self.bwd_zero_weight_share     # computed by the refresh, read after its sync
+            self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s,
+                         **({} if zero is None else {"bwd_zero_weight_share": zero.tolist()}))
 
         with span("trainer.epoch_batches"):
             q_all, p_all, block, s_total, num_hard = self.epoch_batches(epoch)

@@ -338,18 +338,27 @@ def test_hub_pool_gradients_match_jax(hub_ops, impl, slab):
 
 
 def test_hub_pool_matmul_takes_a_residual_layout(hub_ops):
-    """The residual's backward layout (limit N) gives the gradient that no
-    layout gives; with the torch gather it is refused."""
+    """The residual's backward layout (limit N), built with or without the
+    residual's weights, gives the gradient that no layout gives; the
+    segment sum on the layout that leaves the padding out matches it too;
+    with the torch gather a layout is refused."""
     h, _, ops = hub_ops
     thp = ops["float32"][1]
     lay = t_pool.segment_layout(thp.res_nbrs, h.shape[0])
+    masked = t_pool.segment_layout(thp.res_nbrs, h.shape[0], weights=thp.res_w)
+    assert int(masked.row_ptr[-1]) == int((thp.res_w != 0).sum()) < int(lay.row_ptr[-1])
 
     def grad(layout, impl="pallas"):
         x = _t(h).requires_grad_()
         t_hub.hub_pool_matmul(thp, x, torch.float32, impl, bwd_layout=layout).sum().backward()
         return x.grad
 
-    assert torch.equal(grad(lay), grad(None))
+    assert torch.equal(grad(lay), grad(None)) and torch.equal(grad(masked), grad(None))
+    g = torch.ones((h.shape[0], h.shape[1]))
+    args = (_t(h), thp.res_nbrs, thp.res_w, h.shape[0], g)
+    ref, _ = t_pool.gather_pool_bwd_plain(*args, need_weights=False)
+    torch.testing.assert_close(t_pool.gather_pool_bwd_segment_plain(*args, masked), ref,
+                               rtol=0, atol=1e-5)
     with pytest.raises(ValueError, match="bwd_layout"):
         grad(lay, "xla")
 
@@ -605,14 +614,40 @@ def test_trainer_float8_pool_matrices_on_every_rung(tmp_path, impl):
 
 def test_trainer_hub_layouts_for_the_kernel(tmp_path):
     """With ``gather_impl=pallas`` a full-graph hub layer's layout is its
-    residual table's (limit N); a gather layer keeps its walk table's."""
+    residual table's (limit N), built with the residual's weights so that
+    the padding (id 0, weight 0) is left out: exactly ``res_w == 0`` slots,
+    which is the share the trainer keeps for the ``neighborhoods`` event."""
     over = {**_AUTO_AT_SCALE, "model.hub_pool_max_dropped_mass": 1.0,
             "model.gather_impl": "pallas"}
     _, tt, _, _ = _both_trainers(tmp_path, over)
     assert _kinds(tt.pool_mats) == ["hub", "hub"] and len(tt.bwd_layouts) == 1
-    ref = t_pool.segment_layout(tt.pool_mats[0].res_nbrs, tt.table_rows)
+    hp = tt.pool_mats[0]
+    ref = t_pool.segment_layout(hp.res_nbrs, tt.table_rows, weights=hp.res_w)
     for a, b in zip(tt.bwd_layouts[0], ref):
         assert torch.equal(a, b) if torch.is_tensor(b) else a == b
+    pad = int((hp.res_w == 0).sum())
+    assert pad > 0
+    assert int(tt.bwd_layouts[0].row_ptr[-1]) == hp.res_nbrs.numel() - pad
+    assert tt.bwd_zero_weight_share.tolist() == pytest.approx([pad / hp.res_w.numel()])
+
+
+def test_trainer_logs_the_zero_weight_share(tmp_path):
+    """An epoch on the hub rung with the kernels logs, in its
+    ``neighborhoods`` event, the share of the residual's slots that the
+    refreshed layout leaves out for a weight of 0; on the torch gather (no
+    layouts) the event has no such field."""
+    over = {**_AUTO_AT_SCALE, "model.hub_pool_max_dropped_mass": 1.0,
+            "train.max_pairs_per_epoch": 64}
+    for impl in ("pallas", "xla"):
+        _, tt, _, _ = _both_trainers(tmp_path, {**over, "model.gather_impl": impl})
+        tt.train_epoch(0)
+        (event,) = [e for e in tt.log.history if e["event"] == "neighborhoods"]
+        if impl == "xla":
+            assert "bwd_zero_weight_share" not in event
+            continue
+        res_w = tt.pool_mats[0].res_w
+        share = float((res_w == 0).sum()) / res_w.numel()
+        assert share > 0 and event["bwd_zero_weight_share"] == pytest.approx([share])
 
 
 # ---------------------------------------------------------------------------

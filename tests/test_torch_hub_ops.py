@@ -56,8 +56,10 @@ def _hub(device, n=2048, dtype=torch.bfloat16, head=256, residual=8, seed=0, k=5
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
 def test_hub_residual_padding_is_row_zero(device, request):
     """Rows with fewer than R residual entries pad with id 0 and weight 0;
-    the residual's segment layout (limit N) counts them as row 0's slots,
-    so row 0 is one long split row: correct, as each adds 0 * g."""
+    the residual's segment layout (limit N) built without the weights counts
+    them as row 0's slots, so row 0 is one long split row: correct, as each
+    adds 0 * g. Built with the weights, as the trainer builds it, row 0
+    keeps only its slots of nonzero weight."""
     dev = request.getfixturevalue("cuda") if device == "cuda" else torch.device("cpu")
     hp, _ = _hub(dev, head=1024, k=16)
     pad = (hp.res_w == 0)
@@ -67,6 +69,11 @@ def test_hub_residual_padding_is_row_zero(device, request):
     row0 = int((hp.res_nbrs == 0).sum())
     assert int(lay.row_ptr[1] - lay.row_ptr[0]) == row0
     assert int((lay.chunks[:c, 0] == 0).sum()) == -(-row0 // lay.chunk) > 1
+    masked = t_pool.segment_layout(hp.res_nbrs, hp.res_nbrs.shape[0], weights=hp.res_w)
+    c = int(masked.totals[0])
+    real0 = int(((hp.res_nbrs == 0) & ~pad).sum())
+    assert int(masked.row_ptr[1] - masked.row_ptr[0]) == real0 < row0
+    assert int((masked.chunks[:c, 0] == 0).sum()) == max(1, -(-real0 // masked.chunk))
 
 
 def test_build_hub_pool_device_is_repeatable():
@@ -111,14 +118,19 @@ def test_gather_pool_kernels_at_the_hub_residual_shape(cuda, b, dtype):
     before = (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES)
     out = t_pool.gather_pool(table, nbrs, w, n)
     lay = t_pool.segment_layout(nbrs, n)
+    masked = t_pool.segment_layout(nbrs, n, weights=w)
     d1 = t_pool.gather_pool_bwd(table, nbrs, w, n, g, need_weights=False, layout=lay)[0]
     d2 = t_pool.gather_pool_bwd(table, nbrs, w, n, g, need_weights=False)[0]
+    d3 = t_pool.gather_pool_bwd(table, nbrs, w, n, g, need_weights=False, layout=masked)[0]
     torch.cuda.synchronize()
-    assert (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES) == (before[0] + 1, before[1] + 2)
+    assert (t_pool.LAUNCHES, t_pool.SEGMENT_LAUNCHES) == (before[0] + 1, before[1] + 3)
     torch.testing.assert_close(out, t_pool.gather_pool_plain(table, nbrs, w, n),
                                atol=1e-4, rtol=0)
     ref = t_pool.gather_pool_bwd_segment_plain(table, nbrs, w, n, g, lay)
-    assert torch.equal(_bits(d1), _bits(ref)) and torch.equal(_bits(d2), _bits(ref))
+    assert torch.equal(_bits(d1), _bits(ref))
+    # Built by the call, the layout leaves the padding out, as ``masked`` does.
+    ref = t_pool.gather_pool_bwd_segment_plain(table, nbrs, w, n, g, masked)
+    assert torch.equal(_bits(d2), _bits(ref)) and torch.equal(_bits(d3), _bits(ref))
 
 
 @pytest.mark.cuda
@@ -193,7 +205,7 @@ def test_hub_pool_gradient_is_bitwise_repeatable_on_the_card(cuda):
                     device=cuda).bfloat16()
     batch = torch.randint(0, h.shape[0], (500,), generator=torch.Generator(cuda).manual_seed(7),
                           device=cuda)
-    lay = t_pool.segment_layout(hp.res_nbrs, h.shape[0])
+    lay = t_pool.segment_layout(hp.res_nbrs, h.shape[0], weights=hp.res_w)
 
     def grad():
         x = h.clone().requires_grad_()

@@ -219,22 +219,65 @@ def _skewed_walk(seed, n, b, k, limit):
     return table, nbrs.astype(np.int32), rng.random((b, k)).astype(np.float32)
 
 
-# (inputs, valid_limit, chunk): every POOL_CASES shape with chunks of 2
-# (so ids split), a skewed walk-shaped table at the default chunk (a hub id
-# spans more than three chunks), valid_limit below N, and no output rows.
+def _hub_padded(seed, n, b, k, real_max):
+    """Hub-residual-shaped ids: each row's first 1..``real_max`` slots real
+    (skewed ids, weights in (0, 1]), the rest padding with id 0 and weight
+    0, as both hub builders write it; some real slots hit id 0 too."""
+    rng = np.random.default_rng(seed)
+    nbrs = rng.permutation(n)[np.minimum(rng.zipf(1.5, (b, k)) - 1, n - 1)]
+    w = (1.0 - rng.random((b, k))).astype(np.float32)
+    pad = np.arange(k)[None, :] >= rng.integers(1, real_max + 1, b)[:, None]
+    nbrs[pad], w[pad] = 0, 0.0
+    table = rng.standard_normal((n, 24)).astype(np.float32)
+    return table, nbrs.astype(np.int32), w
+
+
+def _with_zero_weights(seed, inputs, share=0.25):
+    """``inputs`` with about ``share`` of the weights set to exactly 0,
+    on ids in range and out of it."""
+    table, nbrs, w = inputs
+    w = np.where(np.random.default_rng(seed).random(w.shape) < share, 0.0, w)
+    return table, nbrs, w.astype(np.float32)
+
+
+# (inputs, valid_limit, chunk, masked): every POOL_CASES shape with chunks
+# of 2 (so ids split), a skewed walk-shaped table at the default chunk (a
+# hub id spans more than three chunks), valid_limit below N, and no output
+# rows; then layouts built with the weights (``masked``), which leave out
+# the slots of weight 0: a hub residual's padding on row 0, and zero weights
+# scattered over a walk table and a POOL_CASES shape.
 SEGMENT_CASES = {
-    **{f"pool_{n}x{d}_b{b}_k{k}_limit{lim}_{dt}": (_pool_inputs(4, n, d, b, k, lim), lim, 2)
+    **{f"pool_{n}x{d}_b{b}_k{k}_limit{lim}_{dt}": (_pool_inputs(4, n, d, b, k, lim), lim, 2,
+                                                   False)
        for n, d, b, k, lim, dt in POOL_CASES},
-    "skewed_walk": (_skewed_walk(8, 60, 64, 12, 60), 60, t_pool.SEGMENT_CHUNK),
-    "skewed_walk_limit_below_n": (_skewed_walk(9, 60, 64, 12, 45), 45, 5),
+    "skewed_walk": (_skewed_walk(8, 60, 64, 12, 60), 60, t_pool.SEGMENT_CHUNK, False),
+    "skewed_walk_limit_below_n": (_skewed_walk(9, 60, 64, 12, 45), 45, 5, False),
     "no_rows": ((np.zeros((6, 8), np.float32), np.zeros((0, 4), np.int32),
-                 np.zeros((0, 4), np.float32)), 6, 3),
+                 np.zeros((0, 4), np.float32)), 6, 3, False),
+    "masked_hub_padding": (_hub_padded(11, 60, 64, 8, 3), 60, 4, True),
+    "masked_skewed_walk_limit_below_n": (
+        _with_zero_weights(12, _skewed_walk(13, 60, 64, 12, 45)), 45, 5, True),
+    "masked_pool_37x100_b7_k6_limit30": (
+        _with_zero_weights(14, _pool_inputs(15, 37, 100, 7, 6, 30)), 30, 2, True),
 }
+MASKED_CASES = [c for c, v in SEGMENT_CASES.items() if v[3]]
 
 
-def _segment_layout_ref(nbrs, limit, chunk):
-    """``segment_layout`` by loops over ids in numpy."""
+def _case_layout(case):
+    """The case's inputs as tensors and its layout (with the weights where
+    the case is masked)."""
+    (table, nbrs, w), limit, chunk, masked = SEGMENT_CASES[case]
+    nb, ww = torch.from_numpy(nbrs), torch.from_numpy(w)
+    lay = t_pool.segment_layout(nb, limit, chunk, weights=ww if masked else None)
+    return table, nbrs, w, lay
+
+
+def _segment_layout_ref(nbrs, limit, chunk, w=None):
+    """``segment_layout`` by loops over ids in numpy (with ``w``, the slots
+    of weight 0 masked)."""
     flat = nbrs.reshape(-1)
+    if w is not None:
+        flat = np.where(w.reshape(-1) != 0, flat, limit)
     row_ptr, slots, chunks, splits, parts = [0], [], [], [], 0
     for r in range(limit):
         mine = np.flatnonzero(flat == r)           # ascending; ids outside [0, limit) never match
@@ -267,9 +310,10 @@ def test_segment_layout_matches_numpy(case):
     make them; the arrays are sized by bounds known from the shape, the
     masked slots sort last in ``slots``, and the rows past the totals are 0
     (``segment_plan_plain``)."""
-    (_, nbrs, _), limit, chunk = SEGMENT_CASES[case]
-    got = t_pool.segment_layout(torch.from_numpy(nbrs), limit, chunk)
-    row_ptr, slots, chunks, splits, parts = _segment_layout_ref(nbrs, limit, chunk)
+    _, limit, chunk, masked = SEGMENT_CASES[case]
+    _, nbrs, w, got = _case_layout(case)
+    row_ptr, slots, chunks, splits, parts = _segment_layout_ref(nbrs, limit, chunk,
+                                                                w if masked else None)
     bk = nbrs.size
     assert got.shape == nbrs.shape and (got.limit, got.chunk) == (limit, chunk)
     assert got.totals.tolist() == [len(chunks), len(splits), parts]
@@ -290,14 +334,20 @@ def test_segment_layout_matches_numpy(case):
 @pytest.mark.parametrize("case", SEGMENT_CASES)
 def test_segment_layout_covers_every_valid_slot_once(case):
     """The chunks tile the valid slots in order, each at most ``chunk``
-    long; every id in [0, limit) has a chunk; every valid slot appears once,
-    under its own id; every partial is written by one chunk and read by its
-    row."""
-    (_, nbrs, _), limit, chunk = SEGMENT_CASES[case]
-    lay = t_pool.segment_layout(torch.from_numpy(nbrs), limit, chunk)
+    long; every id in [0, limit) has a chunk; every valid slot (in a masked
+    layout: of a nonzero weight) appears once, under its own id, and
+    ``row_ptr[limit]`` counts them; every partial is written by one chunk
+    and read by its row."""
+    _, limit, chunk, masked = SEGMENT_CASES[case]
+    _, nbrs, w, lay = _case_layout(case)
     slots, ch, sp = _plan(lay)
     flat = nbrs.reshape(-1)
-    valid = np.flatnonzero((flat >= 0) & (flat < limit))
+    valid = (flat >= 0) & (flat < limit)
+    if masked:
+        assert (valid & (w.reshape(-1) == 0)).any()     # what the case is for
+        valid &= w.reshape(-1) != 0
+    valid = np.flatnonzero(valid)
+    assert int(lay.row_ptr[limit]) == valid.size
     np.testing.assert_array_equal(np.sort(slots), valid)
     assert ch[0, 1] == 0 and ch[-1, 2] == slots.size
     np.testing.assert_array_equal(ch[1:, 1], ch[:-1, 2])
@@ -322,7 +372,8 @@ def test_segment_plain_matches_bwd_plain_and_gather_pool_ad(jax_ops, case, dtype
     import jax.numpy as jnp
 
     _, j_pool = jax_ops
-    (table, nbrs, w), limit, chunk = SEGMENT_CASES[case]
+    table, nbrs, w, lay = _case_layout(case)
+    limit = lay.limit
     if dtype == "bfloat16":
         table = _bf16_round(table)
     b, d = nbrs.shape[0], table.shape[1]
@@ -330,7 +381,6 @@ def test_segment_plain_matches_bwd_plain_and_gather_pool_ad(jax_ops, case, dtype
     td = getattr(torch, dtype)
     tt, nb, ww, gg = (torch.from_numpy(table).to(td), torch.from_numpy(nbrs),
                       torch.from_numpy(w), torch.from_numpy(g))
-    lay = t_pool.segment_layout(nb, limit, chunk)
     got = t_pool.gather_pool_bwd_segment_plain(tt, nb, ww, limit, gg, lay)
     assert got.dtype == td and got.shape == tt.shape
     ref, _ = t_pool.gather_pool_bwd_plain(tt, nb, ww, limit, gg, need_weights=False)
@@ -345,6 +395,56 @@ def test_segment_plain_matches_bwd_plain_and_gather_pool_ad(jax_ops, case, dtype
 
     j_ref = jax.grad(f)(jnp.asarray(table, getattr(jnp, dtype)))
     _assert_d_table(got, torch.from_numpy(np.array(j_ref, np.float32)).to(td), dtype)
+
+
+@pytest.mark.parametrize("case", MASKED_CASES)
+def test_masked_layout_changes_only_the_rows_of_zero_weights(case):
+    """A layout built with the weights sums every row that held no slot of
+    weight 0 exactly as the layout without them (the same slots in the same
+    chunks), bitwise; the rows that did differ by rounding at most."""
+    table, nbrs, w, masked = _case_layout(case)
+    limit, chunk = masked.limit, masked.chunk
+    nb = torch.from_numpy(nbrs)
+    full = t_pool.segment_layout(nb, limit, chunk)
+    g = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (nbrs.shape[0], table.shape[1])).astype(np.float32))
+    args = (torch.from_numpy(table), nb, torch.from_numpy(w), limit, g)
+    got = t_pool.gather_pool_bwd_segment_plain(*args, masked)
+    ref = t_pool.gather_pool_bwd_segment_plain(*args, full)
+    flat, wf = nbrs.reshape(-1), w.reshape(-1)
+    touched = np.zeros(table.shape[0], bool)
+    touched[flat[(flat >= 0) & (flat < limit) & (wf == 0)]] = True
+    assert touched.any() and not touched.all()
+    assert torch.equal(got[~touched], ref[~touched])
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
+
+
+def test_masked_layout_keeps_the_padding_off_row_zero():
+    """A hub residual at scale (over 10k padding slots, id 0, weight 0): the
+    layout built without the weights gives row 0 one split of at least
+    padding / chunk partials, all summed by one warp of pass 2; built with
+    them, no split row has more partials than the most real slots of an id
+    need."""
+    _, nbrs, w = _hub_padded(16, 4000, 4000, 8, 3)
+    pad = int((w == 0).sum())
+    assert pad >= 10_000
+    nb, ww = torch.from_numpy(nbrs), torch.from_numpy(w)
+    chunk = t_pool.SEGMENT_CHUNK
+
+    def most_partials(lay):
+        _, _, sp = _plan(lay)
+        return int((sp[:, 2] - sp[:, 1]).max(initial=0))
+
+    real_max = int(np.bincount(nbrs[w != 0], minlength=4000).max())
+    assert most_partials(t_pool.segment_layout(nb, 4000)) >= pad // chunk
+    assert most_partials(t_pool.segment_layout(nb, 4000, weights=ww)) <= -(-real_max // chunk)
+
+
+def test_segment_layout_checks_its_weights():
+    nbrs = torch.zeros(3, 2, dtype=torch.int32)
+    for bad in (torch.ones(3, 3), torch.ones(2, 2)):
+        with pytest.raises(ValueError, match="weights must be"):
+            t_pool.segment_layout(nbrs, 4, weights=bad)
 
 
 def test_gather_pool_bwd_routes_and_layouts_are_checked():
@@ -503,15 +603,16 @@ def _bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
 
 
-def _segment_bitwise(table, nbrs, w, limit, g, chunk=t_pool.SEGMENT_CHUNK):
-    """The plan kernel's layout equal to the one built on the CPU (plain
-    plan), and the segment kernel's d_table (layout built ahead, and built
-    by the call) bitwise equal to ``gather_pool_bwd_segment_plain`` and
-    across calls, one counted launch each."""
+def _segment_bitwise(table, nbrs, w, limit, g, chunk=t_pool.SEGMENT_CHUNK, masked=False):
+    """The plan kernel's layout (built with the weights where ``masked``)
+    equal to the one built on the CPU (plain plan), and the segment
+    kernel's d_table (layout built ahead, and built by the call) bitwise
+    equal to ``gather_pool_bwd_segment_plain`` and across calls, one
+    counted launch each."""
     plans = t_pool.PLAN_LAUNCHES
-    lay = t_pool.segment_layout(nbrs, limit, chunk)
+    lay = t_pool.segment_layout(nbrs, limit, chunk, weights=w if masked else None)
     assert t_pool.PLAN_LAUNCHES == plans + 1
-    cpu = t_pool.segment_layout(nbrs.cpu(), limit, chunk)
+    cpu = t_pool.segment_layout(nbrs.cpu(), limit, chunk, weights=w.cpu() if masked else None)
     assert torch.equal(lay.totals.cpu(), cpu.totals)
     assert torch.equal(lay.row_ptr.cpu(), cpu.row_ptr)
     for a, b in zip(_plan(lay._replace(**{f: getattr(lay, f).cpu() for f in
@@ -558,6 +659,23 @@ def test_gather_pool_bwd_segment_kernel_skewed_and_unaligned(cuda, dtype):
     g_view = flat[1:].view(600, 24)
     assert g_view.data_ptr() % 16 != 0
     _segment_bitwise(t, nb, ww, 650, g_view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gather_pool_bwd_segment_kernel_on_a_masked_layout(cuda, dtype):
+    """A hub-residual-shaped table (padding slots of id 0 and weight 0) and
+    a walk table with zero weights scattered over it: the kernel's d_table
+    on the layout built with the weights (ahead, and by the call) bitwise
+    equal to its plain version on that layout."""
+    gen = torch.Generator(cuda).manual_seed(5)
+    for (table, nbrs, w), limit in ((_hub_padded(17, 4000, 4000, 16, 6), 4000),
+                                    (_with_zero_weights(18, _skewed_walk(19, 700, 600, 40,
+                                                                         650)), 650)):
+        t = torch.from_numpy(table).to(cuda, getattr(torch, dtype))
+        nb, ww = torch.from_numpy(nbrs).to(cuda), torch.from_numpy(w).to(cuda)
+        g = torch.randn((nbrs.shape[0], table.shape[1]), generator=gen, device=cuda)
+        _segment_bitwise(t, nb, ww, limit, g, masked=True)
 
 
 @pytest.mark.cuda
