@@ -200,6 +200,18 @@ Phases, one JSON line each:
    that step's embeddings at Q = 256, k = 10, equal to exact search except
    at near-ties (1e-6). Per rank: step wall and CUDA-event ms, the
    collectives' calls, bytes and host ms a step, the rung.
+16. hstu_lookup — HSTU's item lookups (``models/hstu.lookup``: gather-pool at
+   K = 1, weight 1) at the ``hstu-ml20m`` train step's shape, over a
+   random f32 [28,300, 256] table: the history [128 * 200, 1] (popularity-
+   skewed ids, padded with -1, lengths from a power-law activity) and the
+   loss's [128 * 200 * 129, 1] (each position's next item, then 128 uniform
+   negatives). Each forward equal to ``gather_pool_plain``; each
+   table gradient, through autograd as the step takes it, bitwise equal to
+   ``gather_pool_bwd_segment_plain`` on the layout the call builds, and the
+   plan kernel to ``segment_plan_plain`` (``check_segment``); the gradient
+   against ``index_add_`` reported. Launch counts of one forward and
+   backward of both lookups; the longest row (slots, chunks, and whether
+   pass 2 sums it); the kernels' times beside their bounds.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
@@ -985,6 +997,98 @@ def check_segment(pool, table, nbrs, w, limit, g, what: str) -> float:
           f"gather_pool_bwd segment {what}: not bitwise equal to its plain version "
           f"(max abs err {err})")
     return err
+
+
+def hstu_lookup_ids(seed: int, n: int, b: int = 128, length: int = 200,
+                    negatives: int = 128) -> tuple[np.ndarray, np.ndarray]:
+    """Ids of one ``hstu-ml20m`` step's lookups: (history [b * length, 1],
+    loss [b * length * (1 + negatives), 1]) int32. Items are drawn by a
+    Pareto(1.2) popularity and window lengths (3..length + 1 slots, real
+    items first, -1 after) by a Pareto(1.2) activity scaled to a mean of 145
+    ratings, as the benchmark's corpus draws them; slot i + 1 is position
+    i's target, the negatives uniform over the table."""
+    rng = np.random.default_rng(seed)
+    pop = rng.pareto(1.2, size=n) + 1.0
+    pop /= pop.sum()
+    act = rng.pareto(1.2, size=b) + 1.0
+    lengths = np.clip(np.rint(145 * act / 6.0), 3, length + 1).astype(np.int64)
+    window = rng.choice(n, size=(b, length + 1), p=pop).astype(np.int32)
+    window[np.arange(length + 1)[None, :] >= lengths[:, None]] = -1
+    negs = rng.integers(0, n, (b, length, negatives), dtype=np.int32)
+    cand = np.concatenate([window[:, 1:, None], negs], axis=-1)
+    return window[:, :length].reshape(-1, 1), cand.reshape(-1, 1)
+
+
+def hstu_lookup_phase(dev, n: int = 28_300, b: int = 128) -> dict:
+    """Phase 16: HSTU's two item lookups at the train step's shape, ``n``
+    table rows and ``b`` users (see the module docstring)."""
+    from movie_recommendation_engine_tpu_torch.core import roofline
+    from movie_recommendation_engine_tpu_torch.models import hstu
+    from movie_recommendation_engine_tpu_torch.ops import pool
+
+    d = 256
+    gen = torch.Generator(device=dev).manual_seed(19)
+    table = torch.randn((n, d), generator=gen, device=dev)
+    hist, loss = (torch.as_tensor(a, device=dev) for a in hstu_lookup_ids(19, n, b))
+    out = {"shape": f"table[{n},{d}] f32, history {tuple(hist.shape)}, "
+                    f"loss {tuple(loss.shape)}, K = 1, weight 1"}
+    grads = {}
+    for what, ids in (("history", hist), ("loss", loss)):
+        w = torch.ones(ids.shape, dtype=torch.float32, device=dev)
+        g = torch.randn((ids.shape[0], d), generator=gen, device=dev)
+        got = pool.gather_pool(table, ids, w, n)
+        ref = pool.gather_pool_plain(table, ids, w, n)
+        torch.cuda.synchronize()
+        # Equal values (a padding row's plain 0 * x may be -0.0).
+        check(torch.equal(got, ref), f"hstu_lookup {what}: forward differs from its plain "
+                                     f"version (max abs err {float((got - ref).abs().max())})")
+        del got, ref
+        err = check_segment(pool, table, ids, w, n, g, f"hstu_lookup {what}")
+        tg = table.clone().requires_grad_()
+        (auto,) = torch.autograd.grad(hstu.lookup(tg, ids), tg, g[:, None])
+        lay = pool.segment_layout(ids, n, weights=w)
+        plain = pool.gather_pool_bwd_segment_plain(table, ids, w, n, g, lay)
+        idx_add, _ = pool.gather_pool_bwd_plain(table, ids, w, n, g, need_weights=False)
+        torch.cuda.synchronize()
+        check(same_bits(auto, plain),
+              f"hstu_lookup {what}: the autograd gradient is not the segment route's")
+        rows = (lay.row_ptr[1:] - lay.row_ptr[:-1]).long()
+        top = int(rows.argmax())
+        chunks, splits, parts = lay.totals.tolist()
+        valid = int(rows.sum())
+        fwd_t = timed(lambda: pool.gather_pool(table, ids, w, n))
+        seg_t = timed(lambda: pool.gather_pool_bwd(table, ids, w, n, g, need_weights=False,
+                                                   layout=lay))
+        whole_t = cuda_ms(lambda: pool.gather_pool_bwd(table, ids, w, n, g, need_weights=False),
+                          iters=10)
+        reached = int(torch.unique(ids[ids >= 0]).numel())
+        fb = roofline.gather_pool_bound(reached, d, ids.shape[0], 1, table_bytes=4)
+        bb = roofline.gather_pool_bwd_bound(n, d, ids.shape[0], 1, 4, valid_slots=valid)
+        out[what] = {
+            "rows": int(ids.shape[0]), "valid_slots": valid, "rows_reached": reached,
+            "max_abs_err_vs_plain_segment": err,
+            "vs_index_add_max_abs": float((auto - idx_add).abs().max()),
+            "chunks": chunks, "split_rows": splits, "parts": parts,
+            "longest_row": {"row": top, "slots": int(rows[top]),
+                            "chunks": int((lay.chunks[:chunks, 0] == top).sum()),
+                            "pass_2": int(rows[top]) > lay.chunk},
+            "forward": {**fwd_t, "bound": fb, "bound_share": fb["ms"] / fwd_t["ms"]},
+            "segment": {**seg_t, "bound": bb, "bound_share": bb["ms"] / seg_t["ms"]},
+            "segment_with_layout_per_call": whole_t}
+        grads[what] = (ids, g)
+        del auto, plain, idx_add, lay
+    zero_launches()
+    tg = table.clone().requires_grad_()
+    total = sum((hstu.lookup(tg, ids) * g[:, None]).sum()
+                for ids, g in grads.values())
+    total.backward()
+    torch.cuda.synchronize()
+    out["launches"] = read_launches()
+    check(out["launches"] == {"gather_pool": 2, "gather_pool_bwd": 2,
+                              "gather_pool_bwd_segment": 2, "segment_plan": 2},
+          f"hstu_lookup: one forward and backward of both lookups launched {out['launches']}")
+    emit("hstu_lookup", **out)
+    return out
 
 
 def first_divergent_op(fn) -> dict:
@@ -3746,6 +3850,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     check_phase(dev)
+    hstu_lookup = hstu_lookup_phase(dev)
+    bwd["hstu_lookup"] = {k: hstu_lookup[k] for k in ("history", "loss", "launches")}
+    gc.collect()
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:
         extras = [movielens_phase(dev, d)]
         gc.collect()

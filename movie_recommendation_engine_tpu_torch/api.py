@@ -34,7 +34,7 @@ class Engine:
                  logger: MetricsLogger | None = None, device=None):
         from .graph import dataset
         from .parallel.mesh import distributed_init
-        from .train.trainer import Trainer
+        from .train.loop import make_trainer
 
         self.device = resolve_device(device)
         # Under torchrun: join the process group (a no-op otherwise).
@@ -42,7 +42,7 @@ class Engine:
         self.cfg = cfg or default_config()
         self.log = logger or MetricsLogger(pretty=False)
         self.data = dataset.load(self.cfg, self.log)
-        self.trainer = Trainer(self.cfg, self.data, self.log, device=self.device)
+        self.trainer = make_trainer(self.cfg, self.data, self.log, device=self.device)
         self._emb: np.ndarray | None = None
         self._emb_device = None          # the same rows on the device
 

@@ -73,9 +73,9 @@ def _load_config(args) -> Config:
 
 def _make_trainer(cfg: Config, logger: MetricsLogger, device):
     from ..graph import dataset
-    from ..train.trainer import Trainer
+    from ..train.loop import make_trainer
 
-    return Trainer(cfg, dataset.load(cfg, logger), logger, device=device)
+    return make_trainer(cfg, dataset.load(cfg, logger), logger, device=device)
 
 
 def _load_checkpoint_if_any(tr, cfg: Config, args, logger) -> None:

@@ -1,7 +1,9 @@
 """Typed configuration for the PinSage engine (PyTorch port).
 
 A field-for-field copy of ``movie_recommendation_engine_tpu/config.py`` so
-that a JAX checkpoint's ``.meta.json`` config loads unchanged. The comments
+that a JAX checkpoint's ``.meta.json`` config loads unchanged, plus the
+port's own model fields (``model.arch`` and HSTU's ``model.hstu_*``), which
+take their defaults when a JAX config is loaded. The comments
 below describe the JAX package's measurements; in this package
 ``model.gather_impl="pallas"`` names the CUDA gather kernel
 (``ops/csrc/gather_pool.cu``) and ``"auto"`` resolves to ``"xla"`` (the torch
@@ -212,6 +214,20 @@ class ModelConfig:
     # that; "all" pools over every node (users get zero features, matching
     # dataset.py:260).
     pool_nodes: str = "movies_only"
+    # "pinsage" (every field above) or "hstu": the Hierarchical Sequential
+    # Transduction Unit (Zhai et al., ICML 2024, arXiv:2402.17152) over each
+    # user's rating history in time order (models/hstu.py,
+    # train/seq_trainer.py). HSTU reads ``embed_dim`` as its width d,
+    # ``num_layers`` as its blocks, ``dropout`` as the input dropout, and
+    # ``train.batch_size`` (users), ``train.num_negative_samples`` (per
+    # position), ``train.nce_temperature`` and ``train.learning_rate``; its
+    # time buckets and linear dropout are the published constants
+    # (``models/hstu.TIME_BUCKETS``, ``LINEAR_DROPOUT``).
+    arch: str = "pinsage"
+    hstu_heads: int = 2
+    hstu_dqk: int = 128                # query / key width of a head
+    hstu_dv: int = 128                 # value width of a head
+    hstu_max_len: int = 200            # positions of the forward (last items)
 
 
 @dataclass

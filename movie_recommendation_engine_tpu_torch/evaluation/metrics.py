@@ -59,10 +59,58 @@ def _chunked_ranks(embeddings: torch.Tensor, qi: torch.Tensor, gi: torch.Tensor,
 
 
 def _chunk_ranks(embeddings: torch.Tensor, qc: torch.Tensor, gc: torch.Tensor) -> torch.Tensor:
-    qe = embeddings[qc]                                           # [C, D]
-    sims = qe @ embeddings.T                                      # [C, N]
-    gt_sim = (qe * embeddings[gc]).sum(dim=1)
+    return _vector_ranks(embeddings, embeddings[qc], gc)
+
+
+def _vector_ranks(items: torch.Tensor, qe: torch.Tensor, gc: torch.Tensor) -> torch.Tensor:
+    sims = qe @ items.T                                           # [C, N]
+    gt_sim = (qe * items[gc]).sum(dim=1)
     return 1 + (sims > gt_sim[:, None]).sum(dim=1)
+
+
+def query_ranks(items: torch.Tensor, queries: torch.Tensor, gt_idx: torch.Tensor,
+                chunk: int = 1024, graphs: ProgramGraphs | None = None,
+                graphed: bool | None = None) -> torch.Tensor:
+    """[Q] 1-based rank of each ground-truth item among all ``items`` [N, D]
+    by dot product with its query vector (``queries`` [Q, D], e.g. user
+    states), padded to whole chunks and graphed as ``_ranks`` is (key
+    ``query_ranks``)."""
+    q = queries.shape[0]
+    if q == 0:
+        return torch.zeros(0, dtype=torch.int64, device=items.device)
+    pad = (-q) % chunk
+    qv = torch.cat([queries, queries.new_zeros((pad, queries.shape[1]))])
+    gi = torch.cat([gt_idx.long(), gt_idx.new_zeros(pad, dtype=torch.int64)])
+    fn = partial(_chunked_query_ranks, chunk=chunk)
+    if use_graphs(graphs, graphed, items.device):
+        n, d = items.shape
+        out = graphs.run(("query_ranks", n, d, q + pad, chunk), fn, (items, qv, gi))
+    else:
+        out = fn(items, qv, gi)
+    return out[:q]
+
+
+def _chunked_query_ranks(items: torch.Tensor, qv: torch.Tensor, gi: torch.Tensor,
+                         chunk: int) -> torch.Tensor:
+    out = torch.empty(qv.shape[0], dtype=torch.int64, device=items.device)
+    for s in range(0, qv.shape[0], chunk):
+        out[s:s + chunk] = _vector_ranks(items, qv[s:s + chunk], gi[s:s + chunk])
+    return out
+
+
+def rank_metrics(ranks: np.ndarray, k_values=(10, 50, 100, 500),
+                 mrr_scale: float = 100.0) -> dict[str, float]:
+    """HR@k and NDCG@k for each k, scaled and standard MRR of 1-based ranks
+    (one relevant item per query: NDCG@k is 1 / log2(rank + 1) within k)."""
+    ranks = np.asarray(ranks, np.float64)
+    out: dict[str, float] = {}
+    for k in k_values:
+        out[f"hit_rate@{k}"] = float((ranks <= k).mean())
+        out[f"ndcg@{k}"] = float(np.where(ranks <= k, 1.0 / np.log2(ranks + 1.0), 0.0).mean())
+    out["mrr"] = float((mrr_scale / ranks).mean())
+    out["mrr_standard"] = float((1.0 / ranks).mean())
+    out["num_pairs"] = int(ranks.shape[0])
+    return out
 
 
 def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),

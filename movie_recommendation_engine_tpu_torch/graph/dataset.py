@@ -97,6 +97,12 @@ class MovieLensData:
             val_ratio=val_ratio, test_ratio=test_ratio,
         )
 
+    def histories(self, window: int) -> split_mod.Histories:
+        """Every user's ratings in time order, as leave-two-out windows of
+        ``window`` items (``graph/split.leave_two_out``)."""
+        return split_mod.leave_two_out(self.user_idx, self.movie_idx, self.timestamps,
+                                       self.num_users, window)
+
 
 def _map_and_filter(
     rating_user_ids: np.ndarray,

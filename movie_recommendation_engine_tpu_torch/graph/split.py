@@ -37,6 +37,12 @@ class SplitData:
         return int(self.user_idx.shape[0])
 
 
+def user_time_order(user_idx: np.ndarray, timestamps: np.ndarray) -> np.ndarray:
+    """The order of the ratings by (user, timestamp); stable, to match
+    pandas ``sort_values``, so a user's ties keep their file order."""
+    return np.lexsort((np.asarray(timestamps, np.int64), np.asarray(user_idx, np.int64)))
+
+
 def temporal_split(
     user_idx: np.ndarray,
     movie_idx: np.ndarray,
@@ -50,8 +56,7 @@ def temporal_split(
     r = np.asarray(ratings, dtype=np.float32)
     t = np.asarray(timestamps, dtype=np.int64)
 
-    # Sort by (user, timestamp); stable to match pandas sort_values.
-    order = np.lexsort((t, u))
+    order = user_time_order(u, t)
     u_s, m_s, r_s, t_s = u[order], m[order], r[order], t[order]
 
     n = u_s.shape[0]
@@ -133,3 +138,51 @@ def corated_item_pairs(
     if max_pairs is not None and pairs.shape[0] > max_pairs:
         pairs = pairs[rng.permutation(pairs.shape[0])[:max_pairs]]
     return pairs
+
+
+@dataclass
+class Histories:
+    """Each user's ratings in time order, cut into the windows of a
+    leave-two-out split: the newest item is the test target, the one before
+    it the validation target, the rest train.
+
+    Each window is ``[U, window]``: ``ids`` int32 (-1 past the end) and
+    ``ts`` int64 (the last real timestamp repeated past the end), right
+    padded, holding the newest ``window`` items up to and including the
+    window's last: train ends before the validation item, ``val`` at it,
+    ``test`` at the test item. ``lengths`` counts each row's real slots."""
+
+    train_ids: np.ndarray
+    train_ts: np.ndarray
+    train_lengths: np.ndarray
+    val_ids: np.ndarray
+    val_ts: np.ndarray
+    val_lengths: np.ndarray
+    test_ids: np.ndarray
+    test_ts: np.ndarray
+    test_lengths: np.ndarray
+    history_lengths: np.ndarray      # [U] every rating of the user
+
+
+def leave_two_out(user_idx: np.ndarray, movie_idx: np.ndarray, timestamps: np.ndarray,
+                  num_users: int, window: int) -> Histories:
+    """The ``Histories`` of every user, from the sort ``temporal_split``
+    makes. A user with fewer than three ratings gets empty windows."""
+    u = np.asarray(user_idx, np.int64)
+    order = user_time_order(u, timestamps)
+    m_s = np.append(np.asarray(movie_idx, np.int64)[order], -1)   # [-1]: no rating
+    t_s = np.append(np.asarray(timestamps, np.int64)[order], 0)
+    sizes = np.bincount(u, minlength=num_users).astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    out = {"history_lengths": sizes}
+    for name, drop in (("train", 2), ("val", 1), ("test", 0)):
+        end = np.where(sizes >= 3, starts + sizes - drop, starts)
+        first = np.maximum(starts, end - window)
+        n = end - first
+        real = np.arange(window)[None, :] < n[:, None]
+        last = np.where(n > 0, end - 1, len(m_s) - 1)
+        src = np.where(real, first[:, None] + np.arange(window)[None, :], last[:, None])
+        out[f"{name}_ids"] = np.where(real, m_s[src], -1).astype(np.int32)
+        out[f"{name}_ts"] = t_s[src]
+        out[f"{name}_lengths"] = n
+    return Histories(**out)

@@ -1,5 +1,6 @@
 """Training runtime: graph, features, neighborhood tables, pool operators,
-the train step, the epoch loop, evaluation and checkpoint / resume.
+the train step, the epoch, evaluation and, through ``loop.TrainLoop``
+(``fit``, checkpoint / resume), the epoch loop.
 
 Port of ``movie_recommendation_engine_tpu/train/trainer.py`` for every
 pooling rung (dense, hybrid, hub, block, gather), every aggregator (a kind
@@ -54,7 +55,6 @@ slots left out for a weight of 0.
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Any, NamedTuple
 
@@ -81,6 +81,7 @@ from ..parallel import sharding
 from ..sampling import negative, ppr, random_walk as rw
 from ..sampling import sharded_walk
 from . import optim
+from .loop import TrainLoop
 from .step_graph import StepGraphs, copy_into, rung, tensors
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -96,7 +97,7 @@ class StepDraws(NamedTuple):
     keep: list[torch.Tensor] | None = None
 
 
-class Trainer:
+class Trainer(TrainLoop):
     """Dataset + model state for one config, on ``device`` (``cuda`` unless
     ``"cpu"`` is asked for)."""
 
@@ -621,10 +622,6 @@ class Trainer:
 
     # ---- epoch loop -------------------------------------------------------
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def _epoch_pairs(self, rng: np.random.Generator) -> np.ndarray:
         pairs = self.train_pairs
         cap = self.cfg.train.max_pairs_per_epoch
@@ -762,122 +759,20 @@ class Trainer:
                 graphed=self.graphed)
 
 
-    # ---- checkpoint / resume ----------------------------------------------
+    # ---- checkpoint / main loop (``TrainLoop``) ----------------------------
 
-    def _rng_words(self) -> np.ndarray:
-        """Two uint32 words drawn from the generator, which is then reseeded
-        from them: a run that saves continues exactly as one that resumes
-        from what it saved (``_reseed``)."""
-        words = torch.randint(0, 2**32, (2,), generator=self.generator,
-                              device=self.device, dtype=torch.int64).cpu().numpy()
-        words = words.astype(np.uint32)
-        self._reseed(words)
-        return words
+    def _params_from(self, flat: dict[str, np.ndarray]):
+        """The params of a checkpoint's flat leaves, on the device."""
+        return ckpt.params_from_jax(flat, self.device)
 
-    def _reseed(self, words: np.ndarray) -> None:
-        w = np.asarray(words, np.uint32).reshape(-1)
-        if w.shape != (2,):
-            raise ValueError(f"checkpoint rng must be uint32[2], got shape {w.shape}")
-        # manual_seed resets the generator's state in place (the state the
-        # step graphs registered), so the graphs stay and replay from the
-        # new seed, as eager steps would.
-        self.generator.manual_seed((int(w[0]) << 32) | int(w[1]))
-
-    def save_checkpoint(self, path: str, tag: str = "last") -> None:
-        """Params, Adam state and a uint32[2] ``rng`` in the JAX package's
-        format (``.npz`` + ``.meta.json``), which its Trainer resumes. Every
-        rank draws the rng words (the generators stay in step); only the
-        coordinator writes, then every rank waits at a barrier, so none
-        reads or exits before the write lands."""
-        flat = {f"params/{k}": v for k, v in ckpt.params_to_jax(self.params).items()}
-        flat.update(optim.state_to_jax(self.opt_state))
-        flat["rng"] = self._rng_words()
-        meta = {"epoch": self.epoch, "best_metric": self.best_metric,
-                "plateau": self.plateau._asdict(), "config": self.cfg.to_dict(), "tag": tag}
-        if mesh_mod.is_coordinator():
-            ckpt.save_flat(path, flat, meta)
-        mesh_mod.barrier(f"ckpt:{tag}")
-
-    def load_checkpoint(self, path: str) -> None:
-        """Params, Adam state, rng (the generator is reseeded from it),
-        epoch, best metric and plateau state from a checkpoint written by
-        either package."""
-        flat = ckpt.load_flat(path)
-        meta = ckpt.load_meta(path)
-        self.graphs.drop()
-        self.params = ckpt.params_from_jax(flat, self.device)
-        self.opt_state = optim.state_from_jax(flat, self.device)
-        self._reseed(flat["rng"])
-        self.epoch = int(meta["epoch"])
-        self.best_metric = float(meta["best_metric"])
-        self.plateau = optim.PlateauState(**meta["plateau"])
-
-    # ---- main loop --------------------------------------------------------
-
-    def fit(self, resume_from: str | None = None) -> dict[str, Any]:
-        """Epochs from ``self.epoch`` to ``train.epochs``: train, validate
-        (HR@min(k) every ``eval.eval_every`` epochs), step the plateau
-        schedule, write ``last_model`` every epoch and ``best_model`` on a
-        new best, stop early on ``eval.patience``."""
-        cfg = self.cfg
-        if resume_from and os.path.exists(
-                resume_from if resume_from.endswith(".npz") else resume_from + ".npz"):
-            self.load_checkpoint(resume_from)
-            self.log.log("resume", epoch=self.epoch)
-
-        stopper = optim.EarlyStopping(cfg.eval.patience)
-        stopper.best = self.best_metric
-        os.makedirs(cfg.paths.checkpoint_dir, exist_ok=True)
-        best_path = os.path.join(cfg.paths.checkpoint_dir, "best_model")
-        last_path = os.path.join(cfg.paths.checkpoint_dir, "last_model")
-        history = []
-        best_written = False  # did THIS fit() call write best_model?
-
-        for epoch in range(self.epoch, cfg.train.epochs):
-            self.epoch = epoch
-            with span("trainer.epoch", timed=True) as sp:
-                stats = self.train_epoch(epoch)
-            stats["epoch_seconds"] = sp.seconds
-
-            val_metric = None
-            if (cfg.eval.eval_every and (epoch + 1) % cfg.eval.eval_every == 0
-                    and self.val_pairs.shape[0] > 0):
-                vp = self.val_pairs
-                cap = cfg.eval.max_val_pairs
-                if cap is not None and vp.shape[0] > cap:
-                    vp = vp[np.random.default_rng(cfg.train.seed + 7).choice(
-                        vp.shape[0], size=cap, replace=False)]
-                val = self.evaluate(vp)
-                val_metric = val[f"hit_rate@{min(cfg.eval.k_values)}"]
-                stats.update({f"val_{k}": v for k, v in val.items()})
-                stats["val_seconds"] = self.eval_seconds
-
-            # Plateau on the train loss (min mode) or on the val metric (max
-            # mode, by negation; epochs without validation leave it as is).
-            if cfg.train.lr_plateau_monitor == "val_metric":
-                if val_metric is not None:
-                    self.plateau = optim.plateau_step(
-                        self.plateau, -float(val_metric), factor=cfg.train.lr_plateau_factor,
-                        patience=cfg.train.lr_plateau_patience)
-            else:
-                self.plateau = optim.plateau_step(
-                    self.plateau, stats["loss"], factor=cfg.train.lr_plateau_factor,
-                    patience=cfg.train.lr_plateau_patience)
-            stats["lr"] = self.plateau.lr
-            self.log.log_epoch(epoch, **stats)
-            history.append(stats)
-
-            self.epoch = epoch + 1
-            self.save_checkpoint(last_path, tag="last")
-            if val_metric is not None and val_metric > self.best_metric:
-                self.best_metric = val_metric
-                self.save_checkpoint(best_path, tag="best")
-                best_written = True
-            if val_metric is not None and stopper.update(val_metric):
-                self.log.log("early_stop", epoch=epoch)
-                break
-
-        return {"history": history, "best_metric": self.best_metric,
-                # Only when this call wrote it: a resumed run restores
-                # best_metric without writing best_model.
-                "best_path": best_path if best_written else None}
+    def validate(self) -> dict[str, float] | None:
+        """``evaluate`` on the validation pairs (a fixed-seed sample of
+        ``eval.max_val_pairs`` where capped), or None without any."""
+        vp = self.val_pairs
+        if vp.shape[0] == 0:
+            return None
+        cap = self.cfg.eval.max_val_pairs
+        if cap is not None and vp.shape[0] > cap:
+            vp = vp[np.random.default_rng(self.cfg.train.seed + 7).choice(
+                vp.shape[0], size=cap, replace=False)]
+        return self.evaluate(vp)
