@@ -1442,7 +1442,6 @@ def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
     fields for ``gather_pool`` and ``gather_pool_bwd``, the engine (for the
     at-scale PPR build) and its embeddings (for the retrieval phase)."""
     from movie_recommendation_engine_tpu_torch import api, default_config
-    from movie_recommendation_engine_tpu_torch.models import pinsage
     from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
     from movie_recommendation_engine_tpu_torch.train.trainer import StepDraws
 
@@ -1545,10 +1544,8 @@ def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
         "max_slots_per_id": int((lay.row_ptr[1:] - lay.row_ptr[:-1]).max()),
         "chunks": int(lay.totals[0]), "split_rows": int(lay.totals[1]),
         "parts": int(lay.totals[2])}
-    nb0, w0 = tr.nbr_tables[0]
     t0 = time.perf_counter()
-    dense = pinsage.build_pool_matrix(nb0, w0, num_cols=n, valid_limit=tr.valid_limit,
-                                      dtype=torch.bfloat16)
+    dense, = tr._dense_matrices(tr.nbr_tables, 1)
     torch.cuda.synchronize()
     dense_build_s = time.perf_counter() - t0
     tr.pool_mats = (dense,)
@@ -1556,21 +1553,21 @@ def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
     rungs["hybrid"] = step_reading(6, draws, walls_n=6, calls=2)[0]
     rungs["hybrid"].update(build_s=dense_build_s,
                            matrix_bytes=dense.numel() * dense.element_size())
-    # The hybrid's two GEMMs with the [N, N] matrix as it is (rows of N
-    # bf16: 16-byte aligned only when N is a multiple of 8) and as a view
-    # into rows padded to a multiple of 8 (the same values).
+    # The hybrid's two GEMMs through the trainer's matrix (rows at
+    # padded_pool_matrix's aligned stride, zero past N) and through an
+    # [N, N] copy of it (rows of N bf16: 16-byte aligned only when N is a
+    # multiple of 8).
     h = torch.randn((n, hidden), generator=tr.generator, device=dev).bfloat16()
-    padded = torch.zeros((n, -(-n // 8) * 8), dtype=torch.bfloat16, device=dev)
-    padded[:, :n] = dense
-    aligned = padded[:, :n]
+    h_pad = torch.nn.functional.pad(h, (0, 0, 0, dense.shape[1] - n))
+    plain = dense[:, :n].contiguous()
     rungs["hybrid"]["gemm_alignment"] = {
-        "row_bytes": n * 2, "padded_row_bytes": padded.shape[1] * 2,
-        "forward": cuda_ms(lambda: dense @ h, iters=5),
-        "forward_aligned": cuda_ms(lambda: aligned @ h, iters=5),
-        "backward": cuda_ms(lambda: dense.t() @ h, iters=5),
-        "backward_aligned": cuda_ms(lambda: aligned.t() @ h, iters=5),
+        "row_bytes": n * 2, "padded_row_bytes": dense.shape[1] * 2,
+        "forward": cuda_ms(lambda: plain @ h, iters=5),
+        "forward_padded": cuda_ms(lambda: dense @ h_pad, iters=5),
+        "backward": cuda_ms(lambda: plain.t() @ h, iters=5),
+        "backward_padded": cuda_ms(lambda: dense.t() @ h, iters=5),
         "gflop_each": 2 * n * n * hidden / 1e9}
-    del padded, aligned, h
+    del plain, h_pad, h
     tr.pool_mats = ()
     del dense
     torch.cuda.empty_cache()

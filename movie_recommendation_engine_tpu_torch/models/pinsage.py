@@ -160,12 +160,29 @@ def importance_pool(h_table: torch.Tensor, nbrs: torch.Tensor,
     return out.to(dtype)
 
 
+# Rows up to which ``build_pool_matrix`` scatters in f32.
+_DIRECT_ABOVE_ROWS = 8192
+# ``padded_pool_matrix``'s row stride, in elements: a multiple of 64 puts each
+# row of a bf16 pool matrix, of its transpose and of a gather of its rows on
+# a 128-byte boundary, as Hopper's GEMM kernels (TMA) need.
+POOL_ROW_ALIGN = 64
+
+
 def dense_pool_matrix(nbrs: torch.Tensor, weights: torch.Tensor, num_cols: int,
                       valid_limit: int | None = None, dtype=torch.bfloat16,
                       accumulate_dtype=torch.float32) -> torch.Tensor:
     """[N, num_cols] row-stochastic pooling matrix A with
     ``A[i, nbrs[i, k]] += w_norm[i, k]`` (masked and renormalized like
     ``importance_pool``), scattered in ``accumulate_dtype``."""
+    return _scatter_pool_matrix(nbrs, weights, num_cols, num_cols, valid_limit, dtype,
+                                accumulate_dtype)
+
+
+def _scatter_pool_matrix(nbrs, weights, num_cols: int, row_stride: int, valid_limit, dtype,
+                         accumulate_dtype) -> torch.Tensor:
+    """``dense_pool_matrix``'s A in the first ``num_cols`` columns of a zero
+    [N, row_stride] matrix. A negative id wraps within ``num_cols``, as an
+    index of the [N, num_cols] matrix does."""
     n, k = nbrs.shape
     limit = num_cols if valid_limit is None else min(valid_limit, num_cols)
     valid = nbrs < limit
@@ -174,34 +191,64 @@ def dense_pool_matrix(nbrs: torch.Tensor, weights: torch.Tensor, num_cols: int,
     w = torch.where(wsum > 0, w / wsum.clamp_min(_EPS), 0.0)
     rows = torch.arange(n, device=nbrs.device).repeat_interleave(k)
     cols = nbrs.clamp(max=num_cols - 1).long().reshape(-1)
-    a = torch.zeros((n, num_cols), dtype=accumulate_dtype, device=nbrs.device)
+    cols = torch.where(cols < 0, cols + num_cols, cols)
+    a = torch.zeros((n, row_stride), dtype=accumulate_dtype, device=nbrs.device)
     a.index_put_((rows, cols), w.reshape(-1).to(accumulate_dtype), accumulate=True)
     return a.to(dtype)
 
 
+def _accumulate_dtype(rows: int, dtype, direct_above_rows: int):
+    """The scatter's dtype: f32 up to ``direct_above_rows`` rows, ``dtype``
+    itself above, so that peak memory is the one output matrix (exact when
+    each row's ids are unique, as walk tables' are)."""
+    return torch.float32 if rows <= direct_above_rows else dtype
+
+
 def build_pool_matrix(nbrs: torch.Tensor, weights: torch.Tensor, num_cols: int,
                       valid_limit: int | None = None, dtype=torch.bfloat16,
-                      direct_above_rows: int = 8192) -> torch.Tensor:
+                      direct_above_rows: int = _DIRECT_ABOVE_ROWS) -> torch.Tensor:
     """Memory-aware ``dense_pool_matrix``: up to ``direct_above_rows`` rows
     the scatter accumulates in f32; above, it scatters straight into
-    ``dtype`` so that peak memory is the one [N, num_cols] output (exact
-    when each row's ids are unique, as walk tables' are)."""
-    acc = torch.float32 if nbrs.shape[0] <= direct_above_rows else dtype
+    ``dtype`` (``_accumulate_dtype``)."""
+    acc = _accumulate_dtype(nbrs.shape[0], dtype, direct_above_rows)
     return dense_pool_matrix(nbrs, weights, num_cols, valid_limit, dtype,
                              accumulate_dtype=acc)
 
 
+def padded_pool_matrix(nbrs: torch.Tensor, weights: torch.Tensor, num_cols: int,
+                       valid_limit: int | None = None) -> torch.Tensor:
+    """``build_pool_matrix``'s bf16 [N, num_cols] matrix, bit for bit, as
+    the first ``num_cols`` columns of a matrix whose row stride is
+    ``num_cols`` rounded up to ``POOL_ROW_ALIGN`` and whose further columns
+    are zero, scattered there directly so that no [N, num_cols] copy is
+    made. ``_dense_pool`` takes it as it is."""
+    stride = -(-num_cols // POOL_ROW_ALIGN) * POOL_ROW_ALIGN
+    acc = _accumulate_dtype(nbrs.shape[0], torch.bfloat16, _DIRECT_ABOVE_ROWS)
+    return _scatter_pool_matrix(nbrs, weights, num_cols, stride, valid_limit, torch.bfloat16,
+                                acc)
+
+
 def _dense_pool(pm: torch.Tensor, h: torch.Tensor, dtype) -> torch.Tensor:
-    return (pm.to(dtype) @ h.to(dtype)).to(dtype)
+    """``pm`` [R, C] @ ``h`` [N, D] for C >= N: the columns of ``pm`` past
+    N are zero (``padded_pool_matrix``) and ``h`` gets as many zero rows, so
+    each product and its gradient sum the same N terms, with every operand
+    at ``pm``'s row stride. At an odd N an [R, N] bf16 matrix has rows off
+    16-byte boundaries, and cuBLAS leaves Hopper's kernels for pre-Hopper
+    ones, 4-5x slower on an H100 at 26,709 rows."""
+    h = h.to(dtype)
+    if pm.shape[1] > h.shape[0]:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pm.shape[1] - h.shape[0]))
+    return (pm.to(dtype) @ h).to(dtype)
 
 
 def _pool_apply(pm, h: torch.Tensor, dtype, gather_impl: str = "xla",
                 bwd_layout: SegmentLayout | None = None,
                 shard: RowShard | None = None) -> torch.Tensor:
     """Full-graph pooling through one layer's operator: a dense [N, N]
-    matrix, an ``ops.hub_pool.HubPool`` (its residual through
-    ``gather_impl``; ``bwd_layout`` is its residual table's layout for the
-    kernel's backward) or an ``ops.block_sparse.BlockPool``. Under
+    matrix (or [N, C] with zero columns past N, ``_dense_pool``), an
+    ``ops.hub_pool.HubPool`` (its residual through ``gather_impl``;
+    ``bwd_layout`` is its residual table's layout for the kernel's
+    backward) or an ``ops.block_sparse.BlockPool``. Under
     ``shard``, ``h`` is the whole gathered table and the result the rank's
     rows."""
     if isinstance(pm, HubPool):
@@ -310,8 +357,8 @@ def pooled_forward_dense(params: Params, x_table: torch.Tensor,
                          dropout_keep: list[torch.Tensor] | None = None,
                          shard: RowShard | None = None) -> torch.Tensor:
     """Full-graph pooled forward with matmul pooling, one [N, N] matrix per
-    layer (importance aggregator). ``dropout_keep`` holds one mask per hidden
-    conv (see ``_dropout``)."""
+    layer (or [N, C] with zero columns past N; importance aggregator).
+    ``dropout_keep`` holds one mask per hidden conv (see ``_dropout``)."""
     if len(pool_mats) != len(params["convs"]):
         raise ValueError("pooled_forward_dense needs one pool matrix per layer")
     return pooled_forward(params, x_table, [], [], dtype=dtype, dropout_rate=dropout_rate,
@@ -362,7 +409,8 @@ def pooled_forward_batch(params: Params, x_table: torch.Tensor,
     pooling operators of a prefix of the layers (``_pool_apply``), the final
     one included when it covers every layer: a hub operator there pools the
     batch rows alone (``hub_pool_matmul_batch``), a block operator pools the
-    whole graph and takes the batch rows, a dense matrix its batch rows.
+    whole graph and takes the batch rows, a dense matrix its batch rows
+    (at the matrix's row stride, ``_dense_pool``).
     ``bwd_layouts[i]`` (``gather_impl="pallas"``) is the backward kernel's
     layout of full-graph layer ``i``'s gather table (a hub layer's residual
     table), or None; the batch layer's rows change every step, so its

@@ -50,7 +50,9 @@ The ``neighborhoods`` event's ``seconds``, ``step_wall_seconds`` and ``fit``'s
 ``epoch_seconds`` and ``val_seconds`` are their spans' durations. Spans wrap
 replays, never a capture. Where the backward kernel's layouts are built, the
 event's ``bwd_zero_weight_share`` gives, per layout, the share of its table's
-slots left out for a weight of 0.
+slots left out for a weight of 0; on the dense and hybrid rungs its
+``dense_pad_cols`` gives, per [N, N] matrix, the zero columns its row stride
+adds (``_dense_matrices``).
 """
 
 from __future__ import annotations
@@ -452,16 +454,16 @@ class Trainer(TrainLoop):
 
     def _dense_matrices(self, tables, n_dense: int) -> tuple:
         """The [N (the rank's rows under a shard), N] pool matrix of each of
-        the first ``n_dense`` tables, cast to ``pool_dtype`` after the bf16
-        build, as JAX does (a scatter-add into float8 would round every
-        addition)."""
+        the first ``n_dense`` tables, at an aligned row stride with zero
+        columns past N (``pinsage.padded_pool_matrix``; the products read
+        it as it is), cast to ``pool_dtype`` after the bf16 build, as JAX
+        does (a scatter-add into float8 would round every addition)."""
         pool_dtype = hub_mod.resolve_pool_matrix_dtype(self.cfg.model.pool_matrix_dtype,
                                                        self.table_rows, "dense")
         mine = slice(None) if self.shard is None else slice(self.shard.start, self.shard.stop)
         return tuple(
-            pinsage.build_pool_matrix(nbrs[mine], w[mine], num_cols=self.table_rows,
-                                      valid_limit=self.valid_limit,
-                                      dtype=torch.bfloat16).to(pool_dtype)
+            pinsage.padded_pool_matrix(nbrs[mine], w[mine], num_cols=self.table_rows,
+                                       valid_limit=self.valid_limit).to(pool_dtype)
             for nbrs, w in tables[:n_dense])
 
     def _hub_operators(self, n_hub: int) -> tuple:
@@ -670,8 +672,10 @@ class Trainer(TrainLoop):
                 self._sync()
             refresh_s = sp.seconds
             zero = self.bwd_zero_weight_share     # computed by the refresh, read after its sync
+            pad = [pm.shape[1] - self.table_rows for pm in self.pool_mats if torch.is_tensor(pm)]
             self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s,
-                         **({} if zero is None else {"bwd_zero_weight_share": zero.tolist()}))
+                         **({} if zero is None else {"bwd_zero_weight_share": zero.tolist()}),
+                         **({"dense_pad_cols": pad} if pad else {}))
 
         with span("trainer.epoch_batches"):
             q_all, p_all, block, s_total, num_hard = self.epoch_batches(epoch)

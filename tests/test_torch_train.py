@@ -470,6 +470,132 @@ def test_train_steps_adam_state_matches_jax(slice_run):
 
 
 # ---------------------------------------------------------------------------
+# The dense rung's pool matrices at a row stride of whole 128 bytes
+# ---------------------------------------------------------------------------
+
+# Synthetic corpora of N = 97 table rows (row stride 128) and of N = 128
+# (stride 128, no padding).
+DENSE_ROWS = {97: {"data.synthetic_num_movies": 98, "data.synthetic_num_ratings": 10000},
+              128: {"data.synthetic_num_movies": 137}}
+
+
+def _dense_trainer(**over) -> TTrainer:
+    cfg = TConfig.from_dict(small_test_config().override(
+        {"train.compute_dtype": "float32", **over}).to_dict())
+    tr = TTrainer(cfg, t_dataset.load(cfg), device="cpu")
+    tr.refresh_neighborhoods()
+    return tr
+
+
+@pytest.fixture(scope="module", params=sorted(DENSE_ROWS))
+def dense_trainer(request):
+    tr = _dense_trainer(**DENSE_ROWS[request.param])
+    assert tr.table_rows == request.param and len(tr.pool_mats) == 2
+    return tr
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def test_dense_operator_is_the_pool_matrix_at_a_padded_stride(dense_trainer):
+    """Each dense operator is ``build_pool_matrix``'s [N, N] matrix bit for
+    bit in its first N columns, at a row stride of N rounded up to 64 whose
+    further columns are zero."""
+    tr = dense_trainer
+    n = tr.table_rows
+    for pm, (nbrs, w) in zip(tr.pool_mats, tr.nbr_tables):
+        assert pm.shape == (n, 128) and pm.dtype == torch.bfloat16 and pm.is_contiguous()
+        ref = t_ps.build_pool_matrix(nbrs, w, num_cols=n, valid_limit=tr.valid_limit)
+        assert torch.equal(pm[:, :n], ref)
+        assert not pm[:, n:].any()
+
+
+def _step_and_embeddings(tr: TTrainer, mats: tuple) -> tuple:
+    """The loss and gradients of one step (fixed draws) and the full-graph
+    embeddings, through ``mats``."""
+    q = torch.as_tensor(tr.train_pairs[:32, 0], dtype=torch.int32)
+    p = torch.as_tensor(tr.train_pairs[:32, 1], dtype=torch.int32)
+    gen = torch.Generator().manual_seed(3)
+    keep = [torch.rand((tr.table_rows, tr.cfg.model.hidden_dim), generator=gen) < 0.8]
+    tr.generator.manual_seed(4)
+    draws = tr.draw_step(q, 1)._replace(keep=keep)
+    saved, tr.pool_mats = tr.pool_mats, mats
+    try:
+        loss, grads = tr.loss_and_grads(q, p, draws, 1.0)
+        emb = tr._embed(tr.params)
+    finally:
+        tr.pool_mats = saved
+    return loss, tree.flatten(grads), emb
+
+
+def test_padded_dense_operator_gives_the_unpadded_products(dense_trainer):
+    """Full-graph embeddings, a step's loss and its gradients through the
+    padded operators equal those through the [N, N] matrices, within f32
+    rounding (1e-6 relative): the same N terms are summed, the padding's
+    products are zeros."""
+    tr = dense_trainer
+    n = tr.table_rows
+    unpadded = tuple(pm[:, :n].contiguous() for pm in tr.pool_mats)
+    loss_p, grads_p, emb_p = _step_and_embeddings(tr, tr.pool_mats)
+    loss_u, grads_u, emb_u = _step_and_embeddings(tr, unpadded)
+    assert np.isfinite(float(loss_u))
+    np.testing.assert_allclose(float(loss_p), float(loss_u), rtol=1e-6, atol=0)
+    assert sorted(grads_p) == sorted(grads_u)
+    for k in grads_u:
+        assert _rel(grads_p[k], grads_u[k]) <= 1e-6, k
+    assert float((emb_p - emb_u).abs().max()) <= 1e-6        # unit-norm rows
+
+
+def test_padded_dense_operator_under_a_row_shard():
+    """A rank's rows of the padded operators (N = 184, stride 192; the
+    second of two shares) are ``build_pool_matrix``'s rows bit for bit, zero
+    past N, and the rank's products, full-graph and of gathered rows, with
+    their gradients equal the unpadded rows' within 1e-6 relative."""
+    from movie_recommendation_engine_tpu_torch.ops.hub_pool import take_rows
+    from movie_recommendation_engine_tpu_torch.parallel.mesh import RowShard
+
+    tr = _dense_trainer()
+    n = tr.table_rows
+    assert n % 2 == 0 and n % 64
+    tr.shard = RowShard(None, 1, 2, n // 2)
+    try:
+        mats = tr._dense_matrices(tr.nbr_tables, 2)
+    finally:
+        tr.shard = None
+    gen = torch.Generator().manual_seed(5)
+    h = torch.randn((n, tr.cfg.model.hidden_dim), generator=gen)
+    g = torch.randn((n // 2, h.shape[1]), generator=gen)
+    idx = torch.randint(0, n // 2, (40,), generator=gen)
+    for pm, (nbrs, w) in zip(mats, tr.nbr_tables):
+        assert pm.shape == (n // 2, 192)
+        ref = t_ps.build_pool_matrix(nbrs[n // 2:], w[n // 2:], num_cols=n,
+                                     valid_limit=tr.valid_limit)
+        assert torch.equal(pm[:, :n], ref) and not pm[:, n:].any()
+        for rows in (lambda a: a, lambda a: take_rows(a, idx)):
+            out = {}
+            for name, a in (("padded", pm), ("unpadded", ref)):
+                hh = h.clone().requires_grad_(True)
+                y = t_ps._pool_apply(rows(a), hh, torch.float32)
+                y.backward(rows(g))
+                out[name] = (y.detach(), hh.grad)
+            assert _rel(out["padded"][0], out["unpadded"][0]) <= 1e-6
+            assert _rel(out["padded"][1], out["unpadded"][1]) <= 1e-6
+
+
+@pytest.mark.parametrize("rows,rung,pad", [(97, "dense", [31, 31]), (128, "dense", [0, 0]),
+                                           (97, "hybrid", [31]), (97, "gather", None)])
+def test_neighborhoods_event_reports_dense_pad_cols(rows, rung, pad):
+    """The refresh's ``neighborhoods`` event gives, per [N, N] matrix, the
+    zero columns of its row stride; it has no ``dense_pad_cols`` off the
+    dense and hybrid rungs."""
+    tr = _dense_trainer(**DENSE_ROWS[rows], **{"model.pool_impl": rung})
+    tr.train_epoch(0)
+    events = [e for e in tr.log.history if e["event"] == "neighborhoods"]
+    assert events and events[-1].get("dense_pad_cols") == pad
+
+
+# ---------------------------------------------------------------------------
 # fit, checkpoints across the packages, the CLI
 # ---------------------------------------------------------------------------
 
