@@ -74,7 +74,7 @@ Phases, one JSON line each:
    the same tables and draws, and both kernels timed at the hub residual's
    shapes (the full graph, B = N, and the batch layer, B = 1524).
 7b. train_graph — the train step and the embedding pass as CUDA graphs
-   (``train/step_graph.py``) on the gather rung with the kernels (4k,
+   (``train/loop.py``) on the gather rung with the kernels (4k,
    ``gather_impl=pallas``), the default config's dense rung (4k) and
    ``train_hub``'s ``hubf`` trainer: a graphed trainer and an eager twin
    (``graphed = False``) from one state run the blocks of epochs 0 and 1
@@ -128,7 +128,7 @@ Phases, one JSON line each:
    search up to near-ties), then the same load eager; p50 / p99, capture seconds, pool
    bytes, free device memory beside the hub trainer.
 9c. epoch_graph — the per-epoch programs as CUDA graphs
-   (``core/graphs.ProgramGraphs``): on the serve corpus (4k), with
+   (``core/graphs.GraphCache``): on the serve corpus (4k), with
    ``gather_impl=pallas`` on the gather rung and with the default (dense)
    config, a graphed trainer and an eager one (``graphed = False``) from one
    seed ``fit`` 3 epochs (12 batches of 512 an epoch): per epoch the tables,
@@ -1678,9 +1678,9 @@ def graph_twins(dev, tr, refresh: bool) -> dict:
     one. Then each path's step (epoch 1's first batch) and embedding pass
     timed: wall per call (host clock, synchronized, 12 calls in turns),
     device time, kernels and busy share over a profiled window."""
+    from movie_recommendation_engine_tpu_torch.core.graphs import copy_into, tensors
     from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
-    from movie_recommendation_engine_tpu_torch.train import step_graph
-    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
+    from movie_recommendation_engine_tpu_torch.train.trainer import Trainer, rung
 
     cfg = tr.cfg
     pairs0, cfg.train.max_pairs_per_epoch = cfg.train.max_pairs_per_epoch, GRAPH_PAIRS
@@ -1688,9 +1688,8 @@ def graph_twins(dev, tr, refresh: bool) -> dict:
     eager.graphed = False
     eager.set_neighborhood_tables(tr.nbr_tables)
     ops_g, ops_e = (tr.pool_mats, tr.bwd_layouts), (eager.pool_mats, eager.bwd_layouts)
-    rebuilt_equal = all(same_bits(a, b) for a, b in zip(step_graph.tensors(ops_g),
-                                                        step_graph.tensors(ops_e)))
-    check(step_graph.copy_into(ops_e, ops_g), "eager twin: operators of another structure")
+    rebuilt_equal = all(same_bits(a, b) for a, b in zip(tensors(ops_g), tensors(ops_e)))
+    check(copy_into(ops_e, ops_g), "eager twin: operators of another structure")
     eager.params, eager.opt_state = copy_state(tr.params, tr.opt_state)
     for t in (tr, eager):
         t._reseed(np.array([2024, 12], np.uint32))
@@ -1709,7 +1708,7 @@ def graph_twins(dev, tr, refresh: bool) -> dict:
     captures = [{k: v for k, v in ev.items() if k != "time"}
                 for ev in tr.log.history[n_events:] if ev["event"] == "step_graph"]
     step_keys = {tuple(c["key"]) for c in captures if c["key"][0] == "step"}
-    out = {"rung": step_graph.rung(tr.pool_mats), "steps": int(g["losses"].numel()),
+    out = {"rung": rung(tr.pool_mats), "steps": int(g["losses"].numel()),
            "state_first_difference": diff, "losses_bitwise_equal": same_bits(g["losses"],
                                                                             e["losses"]),
            "loss_max_abs_diff": loss_diff, "generator_state_equal": gen_equal,
@@ -2625,16 +2624,16 @@ def fit_twins(dev, data, name: str, overrides: dict, ckpt_dir: str) -> dict:
 
 def refresh_at_scale(tr, rows: int, seed: int) -> dict:
     """The refresh of ``rows`` table rows on ``tr``'s graph at the config's
-    width, graphed (its own ``ProgramGraphs``) against eager from one
+    width, graphed (its own ``GraphCache``) against eager from one
     generator state: the first graphed call (eager), the second (capture,
     replay) and a replay under sync debug mode "error" bitwise equal to the
     eager tables and leaving the generator as eager does; then wall, device
     time, kernels and busy share both ways, the capture and its pool bytes."""
-    from movie_recommendation_engine_tpu_torch.core.graphs import ProgramGraphs
+    from movie_recommendation_engine_tpu_torch.core.graphs import GraphCache
     from movie_recommendation_engine_tpu_torch.sampling import random_walk as rw
 
     cfg = tr.cfg
-    cache = ProgramGraphs(tr.device)
+    cache = GraphCache(tr.device)
 
     def walk(graphed: bool):
         return rw.all_node_neighborhood_tables(
@@ -2672,9 +2671,9 @@ def program_at_scale(dev, name: str, run) -> dict:
     against eager: the first graphed call (eager), the second (capture,
     replay) and a replay under sync debug mode "error" bitwise equal to the
     eager output; then both timed (``both_ways``)."""
-    from movie_recommendation_engine_tpu_torch.core.graphs import ProgramGraphs
+    from movie_recommendation_engine_tpu_torch.core.graphs import GraphCache
 
-    cache = ProgramGraphs(dev)
+    cache = GraphCache(dev)
     ref = run(False, cache)
     got = [run(True, cache), run(True, cache), no_sync(lambda: run(True, cache))]
     for call, out in enumerate(got):
@@ -2690,7 +2689,7 @@ def program_at_scale(dev, name: str, run) -> dict:
 
 
 def epoch_graph_phase(dev, serve_data, hub_tr, hub_emb: np.ndarray) -> dict:
-    """The per-epoch programs as CUDA graphs (``core/graphs.ProgramGraphs``):
+    """The per-epoch programs as CUDA graphs (``core/graphs.GraphCache``):
     ``fit_twins`` on the serve corpus (4k) with ``gather_impl=pallas`` on the
     gather rung and with the default (dense) config; then on ``train_hub``'s
     bipartite graph (118,419 nodes) real walk tables at the default width,

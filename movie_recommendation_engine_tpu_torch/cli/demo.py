@@ -19,7 +19,7 @@ import torch
 def run_demo(cfg, args) -> int:
     from ..core import checkpoint as ckpt
     from ..core.device import resolve_device
-    from ..core.graphs import ProgramGraphs
+    from ..core.graphs import GraphCache
     from ..core.logging import MetricsLogger
     from ..evaluation.metrics import recommend
     from ..graph import dataset
@@ -40,7 +40,7 @@ def run_demo(cfg, args) -> int:
             tr.load_checkpoint(best)
         emb = tr.movie_embeddings().cpu().numpy()
     emb_t = torch.as_tensor(emb, device=device)
-    graphs = ProgramGraphs(device)      # recommend's graphs (on cuda)
+    graphs = GraphCache(device)      # recommend's graphs (on cuda)
 
     # Popularity = rating count per movie.
     pop = np.bincount(data.movie_idx, minlength=data.num_movies)

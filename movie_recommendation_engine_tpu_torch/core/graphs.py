@@ -8,17 +8,17 @@ not the card, sets their pace. A CUDA graph is this card's counterpart of a
 jitted program with static shapes: captured once for each static key, it
 reads its inputs at fixed addresses and replays with one host call.
 
-``GraphCache`` holds what the trainer's ``StepGraphs``
-(``train/step_graph.py``), the indexes' ``SearchGraphs`` and the
-``ProgramGraphs`` share: one graph per key in one memory pool, the keys
-whose eager first call ran, the addresses of what the graphs read (a change
-drops them), the capture itself, which logs one event per graph, and
-``call``: the first call under a key eager, the second captured, every call
-from then on a replay on its inputs copied into the static buffers, its
-outputs copied out. ``SearchGraphs`` runs one search program per (query
-rows, ``k``, the index's static form); ``ProgramGraphs`` runs JAX's other
-jitted programs, one graph per static key: the trainer's neighbourhood
-refresh, the validation ranks, ``recommend`` and k-means.
+Every graphed program of the port runs through ``GraphCache.run``: the
+trainers' steps, embedding passes and HSTU's user encoding
+(``train/loop.py``), the indexes' searches (``SearchGraphs``, one graph per
+query rows, ``k`` and the index's static form), and JAX's other jitted
+programs: the trainer's neighbourhood refresh, the validation ranks,
+``recommend`` and k-means. The first call under a key runs eager, the second
+captures, every later one replays on its inputs copied into the static
+buffers. A graph must never replay against stale addresses: ``run`` checks
+the record of what the graph reads (``GraphCache._check``) and drops the
+graphs that read what moved. One pool holds a cache's graphs, and each
+capture logs one event.
 
 The kernel wrappers count launches on the host (``ops.pool.LAUNCHES`` and
 the others). A capture runs the wrappers once and launches nothing, so the
@@ -31,7 +31,7 @@ from __future__ import annotations
 import ctypes
 import threading
 import time
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, Hashable, NamedTuple
 
 import numpy as np
 import torch
@@ -54,15 +54,43 @@ def set_counts(values) -> None:
         setattr(m, a, v)
 
 
-def tensors(obj: Any) -> list[torch.Tensor]:
-    """Every tensor in nested dicts, lists and tuples (named tuples too)."""
-    if torch.is_tensor(obj):
+def tensors(obj: Any, generators: bool = False) -> list:
+    """Every tensor in nested dicts, lists and tuples (named tuples too),
+    and with ``generators`` every ``torch.Generator`` among them."""
+    if torch.is_tensor(obj) or (generators and type(obj) is torch.Generator):
         return [obj]
     if isinstance(obj, dict):
         obj = [obj[k] for k in sorted(obj)]
     if isinstance(obj, (list, tuple)):
-        return [t for x in obj for t in tensors(x)]
+        return [t for x in obj for t in tensors(x, generators)]
     return []
+
+
+def _same_structure(a: Any, b: Any) -> bool:
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        return (torch.is_tensor(a) and torch.is_tensor(b) and a.shape == b.shape
+                and a.dtype == b.dtype and a.device == b.device)
+    if isinstance(a, dict) or isinstance(b, dict):
+        return (type(a) is type(b) and sorted(a) == sorted(b)
+                and all(_same_structure(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)) or isinstance(b, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_structure(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def copy_into(dst: Any, src: Any) -> bool:
+    """Copies every tensor of ``src`` into the tensor at the same place in
+    ``dst`` and returns True when the two have one structure (the same
+    containers, tensor shapes and dtypes, and equal other leaves); else
+    copies nothing and returns False. What a graph read then still lies
+    where it lay."""
+    if dst is None or not _same_structure(dst, src):
+        return False
+    for d, s in zip(tensors(dst), tensors(src)):
+        if d.data_ptr() != s.data_ptr():
+            d.copy_(s)
+    return True
 
 
 def kernel_nodes(raw_graph: int) -> tuple[int, int]:
@@ -101,33 +129,56 @@ class GraphCache:
     """The graphs of one owner on ``device``, all in one memory pool (they
     replay one at a time on one stream, and each output is copied out before
     the next replay). ``event`` names the log event of a capture; each goes
-    to ``events`` and, when ``log`` is set, to ``log.log``."""
+    to ``events`` and, when ``log`` is set, to ``log.log``. ``programs`` is
+    a second cache (its own pool) that ``drop`` drops too: the trainer's
+    per-epoch programs beside its steps.
 
-    def __init__(self, device: torch.device, log, event: str):
+    ``run`` is the one way a program runs through a cache, and ``_check``
+    the one rule for what drops a graph: each graph belongs to a record of
+    what it reads besides its inputs (each tensor's address, shape and
+    dtype, and each generator), kept from capture. When what lies there now
+    differs, every graph of that record is dropped, with the eager runs
+    that warmed their keys; the pool goes with the last graph."""
+
+    def __init__(self, device: torch.device, log=None, event: str = "program_graph",
+                 programs: GraphCache | None = None):
         self.device = device
         self.log = log
         self.event = event
+        self.programs = programs
         self.events: list[dict] = []
         self.graphs: dict[tuple, Captured] = {}
-        self.warm: set[tuple] = set()       # keys whose eager first call ran
-        self.addresses: tuple | None = None
+        self.warm: dict[tuple, Hashable] = {}      # keys whose eager first call ran: their record
+        self.records: dict[Hashable, tuple] = {}   # what each record's graphs read
+        self.lock = threading.RLock()              # one caller at a time on the static buffers
         self.pool = None
         self.pool_bytes = 0                 # reserved memory the captures added
 
-    def drop(self) -> None:
-        """Forget every graph (their memory returns to the allocator)."""
-        self.graphs.clear()
-        self.warm.clear()
-        self.addresses = None
-        self.pool = None
-        self.pool_bytes = 0
+    def drop(self, programs: bool = True) -> None:
+        """Forget every graph (their memory returns to the allocator) and,
+        with ``programs``, those of ``programs``."""
+        with self.lock:
+            self.graphs.clear()
+            self.warm.clear()
+            self.records.clear()
+            self.pool = None
+            self.pool_bytes = 0
+        if programs and self.programs is not None:
+            self.programs.drop()
 
-    def check_addresses(self, addresses: tuple) -> None:
-        """Drops the graphs when what they read no longer lies where it lay
-        at capture (``addresses`` is the owner's record of it)."""
-        if addresses != self.addresses:
-            self.drop()
-            self.addresses = addresses
+    def _check(self, record: Hashable, reads: Any) -> None:
+        """Drops the graphs of ``record`` when ``reads`` no longer lie where
+        they lay when the record was taken, and takes it anew."""
+        now = tuple(x if type(x) is torch.Generator else (x.data_ptr(), x.shape, x.dtype)
+                    for x in tensors(reads, generators=True))
+        if self.records.get(record, now) != now:
+            for key in [k for k, r in self.warm.items() if r == record]:
+                del self.warm[key]
+                self.graphs.pop(key, None)
+            if not self.graphs:
+                self.pool = None
+                self.pool_bytes = 0
+        self.records[record] = now
 
     def replay(self, g: Captured) -> None:
         g.graph.replay()
@@ -177,22 +228,35 @@ class GraphCache:
         self.graphs[key] = g
         return g
 
-    def call(self, key: tuple, fn: Callable, inputs: tuple = (),
-             generator: torch.Generator | None = None) -> Any:
-        """``fn(*inputs)``: eager on the first call under ``key``; on the
-        second captured (``generator`` registered), then replayed; every
-        replay copies ``inputs`` into the static buffers first and returns
-        copies of the static outputs (``copies``)."""
-        g = self.graphs.get(key)
-        if g is None and key not in self.warm:
-            self.warm.add(key)
-            return fn(*inputs)
-        if g is None:
-            g = self.capture(key, fn, inputs, generator=generator)
-        for static, x in zip(g.inputs, inputs):
-            static.copy_(x)
-        self.replay(g)
-        return copies(g.output)
+    def run(self, key: tuple, fn: Callable, inputs: tuple = (), reads: Any = None,
+            record: Hashable = None, generator: torch.Generator | None = None,
+            copy: bool = True) -> Any:
+        """``fn(*inputs)`` under ``key``: eager on the first call, captured
+        on the second (``generator``, what ``fn`` draws from, registered with
+        the graph), then replayed, ``inputs`` copied into the static buffers
+        first. Returns copies of the static outputs (``copies``), or with
+        ``copy=False`` the outputs themselves, which the next replay
+        rewrites.
+
+        ``record`` (by default the key alone) names what the graph reads
+        besides its inputs; graphs of one record drop together. ``reads``,
+        those tensors and generators, are checked first when given
+        (``_check``): a caller that runs one key over many rows passes them
+        with the first."""
+        record = key if record is None else record
+        with self.lock:
+            if reads is not None:
+                self._check(record, reads)
+            g = self.graphs.get(key)
+            if g is None and key not in self.warm:
+                self.warm[key] = record
+                return fn(*inputs)
+            if g is None:
+                g = self.capture(key, fn, inputs, generator)
+            for static, x in zip(g.inputs, inputs):
+                static.copy_(x)
+            self.replay(g)
+            return copies(g.output) if copy else g.output
 
 
 def on_device(device: torch.device, x, dtype: torch.dtype) -> torch.Tensor:
@@ -217,66 +281,29 @@ def queries_on(device: torch.device, queries) -> torch.Tensor:
 
 class SearchGraphs(GraphCache):
     """One search graph per key (the method and its static form, query rows,
-    ``k``) of one index. The first call under a key runs eager; the next
-    captures and every later one replays: its queries copied into the static
-    [Q, D] buffer, the graph replayed, copies of its static outputs
-    returned. A lock keeps two threads from sharing the static buffers."""
+    ``k``) of one index, every one of them on the index's record."""
 
     def __init__(self, device: torch.device, log=None):
         super().__init__(device, log, "search_graph")
-        self.lock = threading.Lock()
 
     def search(self, key: tuple, fn: Callable, queries, reads: tuple, graphed: bool):
         """``fn(q [Q, D] f32) -> (distances, ids)`` on ``queries``: eager
-        unless ``graphed``, else graphed under ``(key[0], Q, *key[1:])``.
-        ``reads`` are the tensors the search reads besides the queries: their
-        addresses and shapes, as at capture, keep the graphs."""
+        unless ``graphed``, else ``run`` under ``(key[0], Q, *key[1:])``, its
+        queries copied into the static [Q, D] buffer. ``reads`` are the
+        tensors the search reads besides the queries."""
         q = queries_on(self.device, queries)
         if not graphed:
             return fn(q)
-        key = (key[0], int(q.shape[0]), *key[1:])
-        with self.lock:
-            self.check_addresses(tuple((t.data_ptr(), tuple(t.shape)) for t in reads))
-            return self.call(key, fn, (q,))
+        return self.run((key[0], int(q.shape[0]), *key[1:]), fn, (q,), reads=reads,
+                        record="index")
 
 
-class ProgramGraphs(GraphCache):
-    """One graph per static key of JAX's other jitted programs: the
-    trainer's neighbourhood refresh (``sampling/random_walk.py``), the
-    validation ranks and ``recommend`` (``evaluation/metrics.py``) and
-    k-means (``retrieval/ivf.py``). ``run`` is ``call`` under a lock, with
-    each key's own record of what its graph reads besides its inputs (the
-    addresses and shapes of ``reads`` and the generator registered with
-    it): a change drops that key's graph alone. Logs ``program_graph``."""
-
-    def __init__(self, device: torch.device, log=None):
-        super().__init__(device, log, "program_graph")
-        self.lock = threading.Lock()
-        self.reads: dict[tuple, tuple] = {}
-
-    def drop(self) -> None:
-        super().drop()
-        self.reads.clear()
-
-    def run(self, key: tuple, fn: Callable, inputs: tuple = (), reads: tuple = (),
-            generator: torch.Generator | None = None) -> Any:
-        """``fn(*inputs)`` under ``key`` (``call``); ``generator`` is what
-        ``fn`` draws from."""
-        seen = (id(generator), *((t.data_ptr(), tuple(t.shape)) for t in reads))
-        with self.lock:
-            if self.reads.get(key, seen) != seen:
-                self.graphs.pop(key, None)
-                self.warm.discard(key)
-            self.reads[key] = seen
-            return self.call(key, fn, inputs, generator)
-
-
-def use_graphs(graphs: ProgramGraphs | None, graphed: bool | None,
+def use_graphs(graphs: GraphCache | None, graphed: bool | None,
                device: torch.device) -> bool:
     """Whether a program runs through ``graphs``: ``graphed`` if given,
     else when ``graphs`` is given and the program runs on ``cuda``."""
     if graphed is None:
         return graphs is not None and device.type == "cuda"
     if graphed and graphs is None:
-        raise ValueError("graphed=True needs graphs= (a core.graphs.ProgramGraphs)")
+        raise ValueError("graphed=True needs graphs= (a core.graphs.GraphCache)")
     return graphed

@@ -10,7 +10,7 @@ from a similarity-count compare, so no full sort is needed:
   utils/evaluation.py:66-69); the standard MRR is reported too.
 
 JAX jits ``_ranks`` (a scan over whole query chunks) and ``recommend``, one
-program per static shape. Given ``graphs`` (a ``core.graphs.ProgramGraphs``)
+program per static shape. Given ``graphs`` (a ``core.graphs.GraphCache``)
 on ``cuda`` each runs as one CUDA graph per key: ``_ranks`` per (rows, dim,
 padded queries, chunk), ``recommend`` per (rows, dim, queries, ``k``,
 ``exclude_query``); ``graphed=False`` runs them eager.
@@ -23,12 +23,12 @@ from functools import partial
 import numpy as np
 import torch
 
-from ..core.graphs import ProgramGraphs, on_device, use_graphs
+from ..core.graphs import GraphCache, on_device, use_graphs
 from ..core.ranking import top_k
 
 
 def _ranks(embeddings: torch.Tensor, query_idx: torch.Tensor,
-           gt_idx: torch.Tensor, chunk: int = 1024, graphs: ProgramGraphs | None = None,
+           gt_idx: torch.Tensor, chunk: int = 1024, graphs: GraphCache | None = None,
            graphed: bool | None = None) -> torch.Tensor:
     """[Q] 1-based rank of each ground-truth item among all items by
     dot-product similarity to the query. The queries are padded to whole
@@ -69,7 +69,7 @@ def _vector_ranks(items: torch.Tensor, qe: torch.Tensor, gc: torch.Tensor) -> to
 
 
 def query_ranks(items: torch.Tensor, queries: torch.Tensor, gt_idx: torch.Tensor,
-                chunk: int = 1024, graphs: ProgramGraphs | None = None,
+                chunk: int = 1024, graphs: GraphCache | None = None,
                 graphed: bool | None = None) -> torch.Tensor:
     """[Q] 1-based rank of each ground-truth item among all ``items`` [N, D]
     by dot product with its query vector (``queries`` [Q, D], e.g. user
@@ -115,7 +115,7 @@ def rank_metrics(ranks: np.ndarray, k_values=(10, 50, 100, 500),
 
 def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),
                         mrr_scale: float = 100.0, chunk: int = 1024,
-                        graphs: ProgramGraphs | None = None,
+                        graphs: GraphCache | None = None,
                         graphed: bool | None = None) -> dict[str, float]:
     """HR@k / MRR over [Q, 2] (query_idx, gt_idx) pairs. Pairs whose query
     or gt index is out of range are dropped first. The ranks reach the host
@@ -143,7 +143,7 @@ def evaluate_embeddings(embeddings, positive_pairs, k_values=(10, 50, 100, 500),
 
 
 def recommend(embeddings: torch.Tensor, query_idx: torch.Tensor, k: int = 10,
-              exclude_query: bool = True, graphs: ProgramGraphs | None = None,
+              exclude_query: bool = True, graphs: GraphCache | None = None,
               graphed: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k by inner product per query: (scores [Q, k], indices [Q, k]),
     the lower index first among equal scores."""

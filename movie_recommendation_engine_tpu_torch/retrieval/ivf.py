@@ -22,7 +22,7 @@ JAX runs the whole search (coarse top-k, the ``nprobe`` probes as one
 query rows and ``k``; on ``cuda`` it is one CUDA graph per (query rows,
 ``k``, ``nprobe``, budget), captured at the key's second call
 (``core/graphs.SearchGraphs``). k-means' iterations, one jitted scan in
-JAX, are one CUDA graph per shape (``core/graphs.ProgramGraphs``).
+JAX, are one CUDA graph per shape (``core/graphs.GraphCache``).
 
 Ranks go through ``core.ranking.top_k``, so the lower position comes first
 among equal distances (``jax.lax.top_k``'s order). The initial centroids are rows
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.graphs import ProgramGraphs, SearchGraphs, on_device, use_graphs
+from ..core.graphs import GraphCache, SearchGraphs, on_device, use_graphs
 from ..core.ranking import top_k
 
 
@@ -55,7 +55,7 @@ def init_indices(n: int, num_clusters: int, seed: int = 0) -> torch.Tensor:
 
 
 def kmeans(x: torch.Tensor, num_clusters: int, iters: int = 15, seed: int = 0,
-           init_idx=None, graphs: ProgramGraphs | None = None,
+           init_idx=None, graphs: GraphCache | None = None,
            graphed: bool | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Lloyd k-means on ``x``'s device: (centroids [P, D] f32, assignments
     [N] int64). Starts from rows ``init_idx`` (else ``init_indices``); an
@@ -169,7 +169,7 @@ class WeakANDIndex:
         self.graphs = SearchGraphs(self.device)
         # k-means' graph: kept across builds, so a rebuild after a re-embed
         # of the same shape replays it.
-        self.build_graphs = ProgramGraphs(self.device)
+        self.build_graphs = GraphCache(self.device)
 
     @property
     def ntotal(self) -> int:

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..core.graphs import ProgramGraphs, use_graphs
+from ..core.graphs import GraphCache, use_graphs
 from ..graph.csr import CSRGraph
 
 
@@ -170,7 +170,7 @@ def all_node_neighborhood_tables(graph: DeviceGraph, num_layers: int,
                                  batch: int = 16384,
                                  num_nodes: int | None = None,
                                  restrict_below: int | None = None,
-                                 uniforms=None, graphs: ProgramGraphs | None = None,
+                                 uniforms=None, graphs: GraphCache | None = None,
                                  graphed: bool | None = None, then=None):
     """One independent [N, K] (ids, weights) table per layer for every node,
     chunked over ``batch`` start nodes: per chunk, then per layer, one
@@ -183,7 +183,7 @@ def all_node_neighborhood_tables(graph: DeviceGraph, num_layers: int,
 
     JAX runs each chunk's walks and top-K of every layer as one jitted
     program (``_multilayer_neighborhoods``). Through ``graphs`` (a
-    ``core.graphs.ProgramGraphs``, on ``cuda`` unless ``graphed`` says
+    ``core.graphs.GraphCache``, on ``cuda`` unless ``graphed`` says
     otherwise) the whole refresh is one CUDA graph per key (rows, batch,
     layers, walks, length, K, search depth, ``restrict_below``, ``then``'s
     name), every chunk and layer in one replay, with ``generator``
@@ -201,8 +201,8 @@ def all_node_neighborhood_tables(graph: DeviceGraph, num_layers: int,
             and use_graphs(graphs, graphed, graph.indptr.device)):
         key = ("refresh", n, batch, num_layers, num_walks, walk_length, num_neighbors,
                n_iters, restrict_below, *(() if then is None else (then[0],)))
-        out = graphs.run(key, program, reads=(graph.indptr, graph.indices, graph.cumprob),
-                         generator=generator)
+        out = graphs.run(key, program, reads=(graph.indptr, graph.indices, graph.cumprob,
+                                              generator), generator=generator)
     else:
         out = program()
     tables = [(out[0][i], out[1][i]) for i in range(num_layers)]

@@ -1,40 +1,138 @@
-"""The training loop that every architecture shares: ``fit`` (epochs,
-validation, the plateau schedule, ``last_model`` / ``best_model``
+"""The training loop that every architecture shares: the state every
+trainer keeps, the step loop (``train_steps``, one graph replay or eager
+step a row of a block), the epoch's block loop (``train_epoch``), ``fit``
+(epochs, validation, the plateau schedule, ``last_model`` / ``best_model``
 checkpoints, early stopping), checkpoint save and resume in the JAX
 package's format, and the generator's checkpointed words.
 
+Where JAX scans a jitted block of steps, compiled once per static argument,
+``train_steps`` replays one CUDA graph of the step per row of the block
+(``core/graphs.GraphCache.run``): the first step under a key runs eager,
+as a real step that also warms the caches, the second captures, and a block
+of any length replays. A step graph records one whole step: the draws from
+the trainer's generator (registered with the graph, so that each replay
+draws new numbers and leaves the generator where an eager step would), the
+forward, the loss, the backward and the in-place Adam update; it reads its
+batch from two static buffers that each step fills and leaves its loss in a
+static scalar. ``lr`` reaches it as a 0-d device tensor filled before each
+block. Steps run eager instead, by rule, on the CPU, under a mesh (gloo
+stages its collectives through the host) and when the caller passes the
+draws; ``graphed = False`` asks for eager steps on the card too.
+
+The step, embedding and encoding graphs share one record (``STATE``) of
+what they read besides their inputs: params, Adam state, ``lr``, the
+generator and the subclass's ``graph_inputs()``. ``train_steps`` checks it
+once a block, an embedding pass once a pass; a moved tensor or another
+generator drops them all. A reseed keeps them: ``manual_seed`` resets the
+registered generator state in place, and the next replay draws from the new
+seed as an eager step would. The per-epoch programs live in
+``graphs.programs``, a pool of their own.
+
 A subclass supplies the model: ``trainer.Trainer`` (PinSage) and
-``seq_trainer.SeqTrainer`` (HSTU) each set ``cfg``, ``log``, ``device``,
-``generator``, ``params``, ``opt_state``, ``plateau``, ``graphs`` (a
-``StepGraphs``), ``epoch``, ``best_metric`` and ``eval_seconds``, and
-implement ``train_epoch``, ``validate``, ``evaluate``, ``movie_embeddings``
-and ``_params_from``.
-``make_trainer`` picks the subclass of ``model.arch``.
+``seq_trainer.SeqTrainer`` (HSTU) call ``TrainLoop.__init__`` with the
+function that draws their params, and implement ``epoch_batches`` (the
+epoch's batches, the first three entries its two [S, ...] batch tensors and
+the steps in a block), ``_block`` (a block's batches on the device, its
+graph key and its step function), ``graph_inputs``, ``_epoch_stats``,
+``validate``, ``evaluate``, ``movie_embeddings`` and ``_params_from``;
+``_epoch_steps`` where ``train_steps`` takes more than the block and ``lr``
+or a block's last steps pad it. ``make_trainer`` picks the subclass of
+``model.arch``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any
+import time
+from functools import partial
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..core import checkpoint as ckpt
+from ..core.graphs import GraphCache
 from ..core.logging import MetricsLogger, span
 from ..graph.dataset import MovieLensData
 from ..parallel import mesh as mesh_mod
 from . import optim
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+STATE = "trainer state"     # the record of what the step, embedding and encoding graphs read
+
+
+class EpochTimes(NamedTuple):
+    """The block loop's clock (host clock, the device synchronized)."""
+
+    seconds: float              # the whole loop, through the losses' readback
+    first_block_seconds: float  # the first block: eager steps and captures among them
+    timed_steps: int            # the steps after the first block
+    timed_seconds: float        # their seconds
+
 
 class TrainLoop:
-    """``fit`` and checkpoints over a subclass's epoch, validation and
-    evaluation."""
+    """The state, step loop, block loop, ``fit`` and checkpoints of a
+    trainer over a subclass's model on ``device``; ``init_params(generator)``
+    draws the params, ``graphed=False`` keeps its programs eager."""
 
-    def train_epoch(self, epoch: int) -> dict[str, float]:
-        """One epoch's steps; its stats, ``loss`` among them."""
+    def __init__(self, cfg: Config, data: MovieLensData, logger: MetricsLogger | None,
+                 device: torch.device, init_params: Callable, graphed: bool = True):
+        self.cfg = cfg
+        self.data = data
+        self.log = logger or MetricsLogger()
+        self.device = device
+        if cfg.train.lr_plateau_monitor not in ("train_loss", "val_metric"):
+            raise ValueError(
+                "train.lr_plateau_monitor must be 'train_loss' or "
+                f"'val_metric', got {cfg.train.lr_plateau_monitor!r}")
+        # The port's own seeded init and streams: the numbers differ from
+        # JAX's; parity comes from injecting JAX's params and draws.
+        self.generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
+        self.params = init_params(self.generator)
+        self.opt_state = optim.adam_init(self.params)
+        self.compute_dtype = _DTYPES[cfg.train.compute_dtype]
+        self.plateau = optim.plateau_init(cfg.train.learning_rate)
+        # The step's lr on the device, filled before each block, so that a
+        # captured step reads the new value.
+        self._lr = torch.zeros((), dtype=torch.float32, device=device)
+        # Steps, embedding passes and the per-epoch programs replay CUDA
+        # graphs on the card; False runs them eager.
+        self.graphed = device.type == "cuda" and graphed
+        self.graphs = GraphCache(device, self.log, "step_graph",
+                                 programs=GraphCache(device, self.log))
+        self.epoch = 0
+        self.best_metric = -float("inf")
+        self.eval_seconds: float | None = None    # seconds of the last ``evaluate``
+        self.steps_per_call = 8                   # steps per block of an epoch
+
+    # ---- what a subclass supplies -----------------------------------------
+
+    def epoch_batches(self, epoch: int) -> tuple:
+        """The epoch's batches on the device: two [S, ...] tensors whose rows
+        are the steps' batches and the steps in a block, first."""
         raise NotImplementedError
+
+    def _epoch_steps(self, epoch: int, batches: tuple) -> tuple[tuple, int | None]:
+        """The arguments of ``train_steps`` after ``lr`` at ``epoch``, and
+        how many of the epoch's steps are real (the rest pad its last block;
+        None: all)."""
+        return (), None
+
+    def _block(self, a_blk, b_blk, *args) -> tuple:
+        """A block's batches on the device as the step takes them, the key
+        of its step graph and its step function ``step(a, b, draws=None)``
+        at ``args``."""
+        raise NotImplementedError
+
+    def graph_inputs(self) -> tuple:
+        """The tensors the step and embedding graphs read besides their
+        inputs and the state every trainer keeps (``_reads``)."""
+        raise NotImplementedError
+
+    def _epoch_stats(self, batches: tuple, times: EpochTimes) -> dict[str, Any]:
+        """An epoch's stats besides the loss and the step times."""
+        return {}
 
     def validate(self) -> dict[str, float] | None:
         """The validation metrics (``hit_rate@k`` among them), or None
@@ -54,6 +152,78 @@ class TrainLoop:
     def _params_from(self, flat: dict[str, np.ndarray]):
         """The params of a checkpoint's flat leaves, on the device."""
         raise NotImplementedError
+
+    # ---- steps and epochs -------------------------------------------------
+
+    def _reads(self) -> tuple:
+        """What the step, embedding and encoding graphs read besides their
+        inputs (their record, ``STATE``)."""
+        return (self.params, self.opt_state, self._lr, self.generator, self.graph_inputs())
+
+    def train_steps(self, a_blk, b_blk, lr: float, *args,
+                    draws: list | None = None) -> torch.Tensor:
+        """Steps over the rows of ``a_blk``, ``b_blk`` [S, ...] at ``args``
+        (``_block``): per step the draws (``draws[s]`` if given, else drawn
+        from the generator), the loss, its gradient and an in-place Adam
+        update at ``lr``; replays of the step's graph where ``graphed`` and
+        no draws are given. Returns the [S] f32 losses on the device,
+        without waiting for them."""
+        a_blk, b_blk, key, step = self._block(a_blk, b_blk, *args)
+        self._lr.fill_(lr)
+        losses = torch.empty(a_blk.shape[0], dtype=torch.float32, device=self.device)
+        graphed = self.graphed and draws is None
+        for s in range(a_blk.shape[0]):
+            if graphed:
+                losses[s] = self.graphs.run(key, step, (a_blk[s], b_blk[s]),
+                                            reads=None if s else self._reads(), record=STATE,
+                                            generator=self.generator, copy=False)
+            else:
+                losses[s] = step(a_blk[s], b_blk[s], None if draws is None else draws[s])
+        return losses
+
+    def train_epoch(self, epoch: int) -> dict[str, Any]:
+        """One epoch's steps: ``epoch_batches`` (span
+        ``trainer.epoch_batches``), then ``train_steps`` block by block
+        (span ``trainer.steps``, through the losses' readback). Stats:
+        ``loss`` (the mean over the real steps), ``step_ms_avg`` (the mean
+        over the steps after the first block), ``step_wall_seconds`` and the
+        subclass's ``_epoch_stats``."""
+        with span("trainer.epoch_batches"):
+            batches = self.epoch_batches(epoch)
+            self._sync()
+        a_all, b_all, block = batches[:3]
+        args, real = self._epoch_steps(epoch, batches)
+        step_losses = []
+        t_after_first = None
+        with span("trainer.steps", timed=True) as steps:
+            for s0 in range(0, a_all.shape[0], block):
+                step_losses.append(self.train_steps(a_all[s0:s0 + block], b_all[s0:s0 + block],
+                                                    self.plateau.lr, *args))
+                if t_after_first is None:
+                    self._sync()
+                    t_after_first = time.time_ns()
+            losses = torch.cat(step_losses).cpu().numpy()[:real]
+        times = EpochTimes(steps.seconds, (t_after_first - steps.start_ns) / 1e9,
+                           a_all.shape[0] - block, (steps.end_ns - t_after_first) / 1e9)
+        return {
+            "loss": float(losses.mean()),
+            "step_ms_avg": (times.timed_seconds / times.timed_steps * 1e3
+                            if times.timed_steps else float("nan")),
+            "step_wall_seconds": round(steps.seconds, 2),
+            **self._epoch_stats(batches, times),
+        }
+
+    def _cached_call(self, key: tuple, fn: Callable, params=None, inputs: tuple = (),
+                     check: bool = True) -> Any:
+        """``fn(params, *inputs)`` at ``params`` (``self.params`` if None):
+        where ``graphed`` and ``params`` is ``self.params``, which the graph
+        reads in place, a replay of its graph under ``key`` on the steps'
+        record (checked first with ``check``: once a pass); else eager."""
+        p = self.params if params is None else params
+        if self.graphed and p is self.params:
+            return self.graphs.run(key, partial(fn, p), inputs,
+                                   reads=self._reads() if check else None, record=STATE)
+        return fn(p, *inputs)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -10,7 +10,7 @@ holding a second copy of each; it returns them as JAX's does. The step count
 is a 0-d int32 tensor on the params' device, the bias corrections are
 computed from it there, and ``lr`` may be a 0-d f32 tensor there too: no
 number of the update lives on the host, so one update can be captured in a
-CUDA graph and replayed (``train/step_graph.py``), as JAX traces ``step``
+CUDA graph and replayed (``train/loop.py``), as JAX traces ``step``
 and ``lr`` into its jitted step. ``state_to_jax`` / ``state_from_jax``
 carry the state in JAX's checkpoint layout: ``opt/step`` int32,
 ``opt/mu/<param path>``, ``opt/nu/<param path>``.

@@ -18,10 +18,10 @@ its query time the held-out item's timestamp) with the L2-normalised item
 table, through the ranks graph (``evaluation.metrics.query_ranks``): HR@k,
 NDCG@k and MRR.
 
-The loop, the plateau schedule, early stopping and checkpoints (``fit``,
-``save_checkpoint``) are ``loop.TrainLoop``'s, the Adam update
-``optim``'s, as for PinSage. As there, on the
-card a step replays one CUDA graph (``StepGraphs``, key ``("seq_step", B,
+The step loop, the block loop, the plateau schedule, early stopping and
+checkpoints (``train_steps``, ``train_epoch``, ``fit``, ``save_checkpoint``)
+are ``loop.TrainLoop``'s, the Adam update ``optim``'s, as for PinSage. As
+there, on the card a step replays one CUDA graph (key ``("seq_step", B,
 window)``, the first step eager), the user encoding one graph per chunk
 shape and the item table one graph; the CPU, ``draws=`` and ``graphed =
 False`` run eager. Spans: ``trainer.epoch_batches`` (the permutation on the
@@ -35,7 +35,7 @@ causal triangles) for a FLOP count.
 
 from __future__ import annotations
 
-import time
+from typing import Any
 
 import numpy as np
 import torch
@@ -52,8 +52,6 @@ from ..models.pinsage import num_params
 from ..parallel import sharding
 from . import optim
 from .loop import TrainLoop
-from .step_graph import StepGraphs
-from .trainer import _DTYPES
 
 ENCODE_BATCH = 1024        # users a chunk of the validation encoding
 
@@ -63,17 +61,12 @@ class SeqTrainer(TrainLoop):
 
     def __init__(self, cfg: Config, data: MovieLensData,
                  logger: MetricsLogger | None = None, device=None):
-        self.cfg = cfg
-        self.data = data
-        self.log = logger or MetricsLogger()
-        self.device = resolve_device(device)
         if cfg.mesh.mesh_shape is not None:
             raise ValueError("model.arch='hstu' runs on one device (mesh.mesh_shape is set)")
-        if cfg.train.lr_plateau_monitor not in ("train_loss", "val_metric"):
-            raise ValueError(
-                "train.lr_plateau_monitor must be 'train_loss' or "
-                f"'val_metric', got {cfg.train.lr_plateau_monitor!r}")
+        device = resolve_device(device)
         self.dims = hstu.dims(cfg)
+        super().__init__(cfg, data, logger, device, init_params=lambda g: hstu.init_params(
+            g, data.num_movies, self.dims, device))
         self.length = self.dims.max_len
         self.window = self.length + 1
         self.num_items = data.num_movies
@@ -87,20 +80,6 @@ class SeqTrainer(TrainLoop):
         self.train_ids = on_device(self.device, _with_empty(h.train_ids, -1), torch.int32)
         self.train_ts = on_device(self.device, _with_empty(h.train_ts, 0), torch.int64)
         self._eval_sets: dict[str, tuple] = {}
-
-        seed = cfg.train.seed
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = hstu.init_params(self.generator, self.num_items, self.dims, self.device)
-        self.compute_dtype = _DTYPES[cfg.train.compute_dtype]
-        self.opt_state = optim.adam_init(self.params)
-        self.plateau = optim.plateau_init(cfg.train.learning_rate)
-        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
-        self.graphed = self.device.type == "cuda"
-        self.graphs = StepGraphs(self.device, self.generator, self.log)
-        self.epoch = 0
-        self.best_metric = -float("inf")
-        self.eval_seconds: float | None = None
-        self.steps_per_call = 8
         self.log.log(
             "init", device=str(self.device), arch="hstu", num_movies=data.num_movies,
             num_users=data.num_users, num_params=num_params(self.params),
@@ -134,24 +113,14 @@ class SeqTrainer(TrainLoop):
         return loss
 
     def graph_inputs(self) -> tuple:
-        return (self.params, self.opt_state, self.train_ids, self.train_ts, self._lr)
+        return (self.train_ids, self.train_ts)
 
-    def train_steps(self, ids_blk, ts_blk, lr: float,
-                    draws: list[hstu.Draws] | None = None) -> torch.Tensor:
-        """Steps over the windows ``ids_blk``, ``ts_blk`` [S, B, window];
-        replays of the step's graph where ``graphed`` and no draws are
-        given. Returns the [S] f32 losses, without waiting for them."""
+    def _block(self, ids_blk, ts_blk) -> tuple:
+        """A block's windows on the device, ``ids`` int32 and ``ts`` int64,
+        the step graph's key (batch, window) and the step."""
         ids_blk = torch.as_tensor(ids_blk, dtype=torch.int32, device=self.device)
         ts_blk = torch.as_tensor(ts_blk, dtype=torch.int64, device=self.device)
-        self._lr.fill_(lr)
-        if self.graphed and draws is None:
-            self.graphs.check(self.graph_inputs(), self.generator)
-            key = ("seq_step", int(ids_blk.shape[1]), self.window)
-            return self.graphs.steps(self.step, ids_blk, ts_blk, key)
-        losses = torch.empty(ids_blk.shape[0], dtype=torch.float32, device=self.device)
-        for s in range(ids_blk.shape[0]):
-            losses[s] = self.step(ids_blk[s], ts_blk[s], None if draws is None else draws[s])
-        return losses
+        return ids_blk, ts_blk, ("seq_step", int(ids_blk.shape[1]), self.window), self.step
 
     # ---- epoch loop -------------------------------------------------------
 
@@ -176,30 +145,10 @@ class SeqTrainer(TrainLoop):
         block = min(self.steps_per_call, rows.shape[0])
         return self.train_ids[rows], self.train_ts[rows], block, counts
 
-    def train_epoch(self, epoch: int) -> dict[str, float]:
-        with span("trainer.epoch_batches"):
-            ids_all, ts_all, block, counts = self.epoch_batches(epoch)
-            self._sync()
-        step_losses = []
-        t_after_first = None
-        with span("trainer.steps", timed=True) as steps:
-            for s0 in range(0, ids_all.shape[0], block):
-                step_losses.append(self.train_steps(ids_all[s0:s0 + block],
-                                                    ts_all[s0:s0 + block], self.plateau.lr))
-                if t_after_first is None:
-                    self._sync()
-                    t_after_first = time.time_ns()
-            all_losses = torch.cat(step_losses).cpu().numpy()
-        n_timed = ids_all.shape[0] - block
-        timed_s = (steps.end_ns - t_after_first) / 1e9
-        return {
-            "loss": float(all_losses.mean()),
-            "examples_per_sec": counts["positions"] / max(steps.seconds, 1e-9),
-            "step_ms_avg": timed_s / n_timed * 1e3 if n_timed else float("nan"),
-            "step_wall_seconds": round(steps.seconds, 2),
-            "steps": int(ids_all.shape[0]),
-            **counts,
-        }
+    def _epoch_stats(self, batches: tuple, times) -> dict[str, Any]:
+        counts = batches[3]
+        return {"examples_per_sec": counts["positions"] / max(times.seconds, 1e-9),
+                "steps": int(batches[0].shape[0]), **counts}
 
     # ---- inference / eval -------------------------------------------------
 
@@ -207,10 +156,7 @@ class SeqTrainer(TrainLoop):
     def movie_embeddings(self, params=None) -> torch.Tensor:
         """[num_movies, d] f32 L2-normalised item table: a replay of its
         graph where ``graphed`` and ``params`` is None or ``self.params``."""
-        if self.graphed and (params is None or params is self.params):
-            self.graphs.check(self.graph_inputs(), self.generator)
-            return self.graphs.embed(lambda: hstu.item_table(self.params), ("items",))
-        return hstu.item_table(self.params if params is None else params)
+        return self._cached_call(("items",), hstu.item_table, params)
 
     def _eval_set(self, split: str) -> tuple:
         """(ids, ts [Q', window] on the device, padded to whole chunks with
@@ -240,19 +186,10 @@ class SeqTrainer(TrainLoop):
         per chunk shape where ``graphed`` and ``params`` is None or
         ``self.params``."""
         ids, ts, pos, targets, chunk = self._eval_set(split)
-        p = self.params if params is None else params
-        graphed = self.graphed and p is self.params
-        if graphed:
-            self.graphs.check(self.graph_inputs(), self.generator)
-        out = []
-        for s in range(0, ids.shape[0], chunk):
-            args = (ids[s:s + chunk], ts[s:s + chunk], pos[s:s + chunk])
-            if graphed:
-                out.append(self.graphs.call(("encode", chunk, self.window),
-                                            lambda i, t, q: self._last_state(self.params, i, t, q),
-                                            args))
-            else:
-                out.append(self._last_state(p, *args))
+        out = [self._cached_call(("encode", chunk, self.window), self._last_state, params,
+                                 (ids[s:s + chunk], ts[s:s + chunk], pos[s:s + chunk]),
+                                 check=s == 0)
+               for s in range(0, ids.shape[0], chunk)]
         return torch.cat(out)[:targets.shape[0]], targets
 
     def _last_state(self, params, ids, ts, pos) -> torch.Tensor:

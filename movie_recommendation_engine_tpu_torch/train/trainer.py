@@ -20,13 +20,11 @@ and it, the walk tables and the pool operators hold the rank's rows only
 The gather kernels stay on under a mesh. Only the coordinator writes a
 checkpoint; every rank loads it.
 
-Where JAX scans a jitted block of steps, ``train_steps`` replays a CUDA
-graph of the step once a step (``train/step_graph.py``: one graph per
-``num_hard``, batch size and rung, as JAX compiles once per ``num_hard``),
-and ``movie_embeddings`` one graph of the embedding pass. Steps run eager
-instead, by rule, on the CPU, under a mesh (gloo stages its collectives
-through the host) and when the caller passes the draws; ``graphed = False``
-asks for eager steps on the card too. The epoch is still cut into blocks of
+Where JAX scans a jitted block of steps, ``train_steps`` (``loop.TrainLoop``)
+replays a CUDA graph of the step once a step (one graph per ``num_hard``,
+batch size and rung, as JAX compiles once per ``num_hard``), and
+``movie_embeddings`` one graph of the embedding pass; both run eager under a
+mesh too. The epoch is still cut into blocks of
 ``min(8, steps)`` steps, padded to whole blocks by wrap-around, so that the
 port takes as many Adam steps as JAX. ``lr`` and ``epoch`` reach the step as
 0-d device tensors, filled before each block, and Adam's step count lives on
@@ -38,9 +36,9 @@ JAX's. Table sampling
 Where JAX runs each refresh chunk's walks and top-K as one program and its
 validation ranks as one scan, the card replays one CUDA graph of the whole
 refresh (``walk_tables``, with the dense rung's pool matrices) and one of
-the ranks (``evaluate``), kept in ``graphs.programs`` under the same rules
-as the step graphs; the hub and block operators and the segment layouts are
-built eager (host gates pick the rung and its shapes).
+the ranks (``evaluate``), kept in ``graphs.programs``, each graph dropped
+alone when what it reads moves; the hub and block operators and the segment
+layouts are built eager (host gates pick the rung and its shapes).
 
 Program spans (``core.logging.span``) mark the epoch's parts:
 ``trainer.refresh`` (``.walks``, ``.pool_build``), ``trainer.epoch_batches``,
@@ -65,14 +63,14 @@ import torch
 
 from ..config import Config
 from ..core import checkpoint as ckpt
-from ..core import tree
 from ..core.device import resolve_device
+from ..core.graphs import copy_into, tensors
 from ..core.logging import MetricsLogger, span
 from ..evaluation import metrics as eval_metrics
 from ..graph import features as feat_mod
 from ..graph.dataset import MovieLensData
 from ..graph.split import corated_item_pairs
-from ..models import losses, pinsage
+from ..models import pinsage
 from ..ops import block_sparse as bsp
 from ..ops import hub_pool as hub_mod
 from ..ops.hub_pool import HubPool
@@ -84,9 +82,16 @@ from ..sampling import negative, ppr, random_walk as rw
 from ..sampling import sharded_walk
 from . import optim
 from .loop import TrainLoop
-from .step_graph import StepGraphs, copy_into, rung, tensors
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+def rung(pool_mats) -> str:
+    """The pooling rung of a trainer's operators, one word a layer
+    (``dense``, ``hub``, ``block``), or ``gather`` where there are none:
+    part of the step and embedding graphs' keys."""
+    words = ["hub" if isinstance(pm, HubPool)
+             else "block" if isinstance(pm, bsp.BlockPool) else "dense"
+             for pm in pool_mats]
+    return ",".join(words) or "gather"
 
 
 class StepDraws(NamedTuple):
@@ -105,21 +110,21 @@ class Trainer(TrainLoop):
 
     def __init__(self, cfg: Config, data: MovieLensData,
                  logger: MetricsLogger | None = None, device=None):
-        self.cfg = cfg
-        self.data = data
-        self.log = logger or MetricsLogger()
-        self.device = resolve_device(device)
+        device = resolve_device(device)
         # ---- optional device mesh -------------------------------------------
         self.mesh = self.world = self.shard = None
         if cfg.mesh.mesh_shape is not None:
             self.mesh = mesh_mod.make_mesh(tuple(cfg.mesh.mesh_shape))
             self.world = torch.distributed.group.WORLD
-            self.device = mesh_mod.rank_device(self.device)
+            device = mesh_mod.rank_device(device)
             self._data_size = mesh_mod.axis_size(self.mesh, "data")
-        if cfg.train.lr_plateau_monitor not in ("train_loss", "val_metric"):
-            raise ValueError(
-                "train.lr_plateau_monitor must be 'train_loss' or "
-                f"'val_metric', got {cfg.train.lr_plateau_monitor!r}")
+        mc = cfg.model
+        # Steps and embedding passes run eager under a mesh.
+        super().__init__(cfg, data, logger, device, graphed=self.mesh is None,
+                         init_params=lambda g: pinsage.init_params(
+                             g, cfg.features.feature_dim, mc.hidden_dim, mc.embed_dim,
+                             mc.num_layers, mc.aggregator_type, use_batch_norm=mc.use_batch_norm,
+                             init_style=mc.init_style, device=device))
 
         # ---- graph ---------------------------------------------------------
         if cfg.graph.use_bipartite_graph:
@@ -191,28 +196,9 @@ class Trainer(TrainLoop):
                 "data.min_interactions / val_ratio / test_ratio)")
 
         # ---- model ---------------------------------------------------------
-        # The port's own seeded init and walk stream: the numbers differ from
-        # JAX's; parity comes from injecting JAX's params and tables.
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.params = pinsage.init_params(
-            self.generator, cfg.features.feature_dim, cfg.model.hidden_dim,
-            cfg.model.embed_dim, cfg.model.num_layers, cfg.model.aggregator_type,
-            use_batch_norm=cfg.model.use_batch_norm,
-            init_style=cfg.model.init_style, device=self.device)
-        self.compute_dtype = _DTYPES[cfg.train.compute_dtype]
-        self.opt_state = optim.adam_init(self.params)
-        self.plateau = optim.plateau_init(cfg.train.learning_rate)
-        # The step's lr and epoch on the device, filled before each block,
-        # so that a captured step reads the new values.
-        self._lr = torch.zeros((), dtype=torch.float32, device=self.device)
+        # The step's epoch on the device, filled before each block, so that
+        # a captured step reads the new value.
         self._epoch = torch.zeros((), dtype=torch.float32, device=self.device)
-        # Steps and embedding passes replay CUDA graphs on the card without
-        # a mesh (train/step_graph.py); False runs them eager.
-        self.graphed = self.device.type == "cuda" and self.mesh is None
-        self.graphs = StepGraphs(self.device, self.generator, self.log)
-        self.epoch = 0
-        self.best_metric = -float("inf")
-        self.eval_seconds: float | None = None    # seconds of the last ``evaluate``
         self.nbr_tables: list[tuple[torch.Tensor, torch.Tensor]] | None = None
         self.pool_mats: tuple = ()
         self.bwd_layouts: list | None = None
@@ -220,8 +206,6 @@ class Trainer(TrainLoop):
         # (on the device; read back for the ``neighborhoods`` event).
         self.bwd_zero_weight_share: torch.Tensor | None = None
         self._block_perm: np.ndarray | None = None   # block rung's node order
-        # Steps per block of an epoch (see train_epoch).
-        self.steps_per_call = 8
 
         # "auto" = the torch gather + einsum formulation, as the JAX trainer
         # resolves it; "pallas" = the CUDA gather kernel (ops/pool.py).
@@ -310,8 +294,10 @@ class Trainer(TrainLoop):
 
         Captured graphs read the old tables, operators and layouts. Where
         two sets fit on the card, the new set is copied into the old one's
-        storage when the shapes match, and the graphs stay; else the graphs
-        are dropped and the old set freed before the new one is built."""
+        storage when the shapes match, and the graphs stay (else the new set
+        lies elsewhere, and the graphs' record drops them at their next use);
+        where not, the graphs are dropped and the old set freed before the
+        new one is built."""
         made = {}      # one tensor per input object: layers may share a table
 
         def on_device(x, dtype):
@@ -346,8 +332,6 @@ class Trainer(TrainLoop):
             new = (self.nbr_tables, self.pool_mats, self.bwd_layouts)
             if copy_into(old, new):
                 self.nbr_tables, self.pool_mats, self.bwd_layouts = old
-            else:
-                self.graphs.drop(programs=False)
 
     def _fits_twice(self, tables_and_operators) -> bool:
         """Whether a second set of tables, operators and layouts of this
@@ -595,32 +579,21 @@ class Trainer(TrainLoop):
         return loss
 
     def graph_inputs(self) -> tuple:
-        """What a captured step or embedding pass reads besides its batch."""
-        return (self.params, self.opt_state, self.x_table, self.nbr_tables, self.pool_mats,
-                self.bwd_layouts, self.graph, self._lr, self._epoch)
+        return (self.x_table, self.nbr_tables, self.pool_mats, self.bwd_layouts, self.graph,
+                self._epoch)
 
-    def train_steps(self, q_blk, p_blk, lr: float, epoch: float, num_hard: int,
-                    draws: list[StepDraws] | None = None) -> torch.Tensor:
-        """Steps over the batches ``q_blk``, ``p_blk`` [S, B]: per step the
-        negatives (``draws[s]`` if given, else drawn), the loss and its
-        gradient, and an Adam update of ``self.params`` at ``lr``; replays
-        of the step's CUDA graph where ``graphed`` and no draws are given.
-        Returns the [S] f32 losses on the device, without waiting for them."""
+    def _block(self, q_blk, p_blk, epoch: float, num_hard: int) -> tuple:
+        """A block's query and positive ids as int32 on the device (the
+        tables refreshed first where there are none), the epoch filled in,
+        the step graph's key (``num_hard``, batch size, rung) and its
+        step."""
         if self.nbr_tables is None and self.cfg.train.train_path != "mlp":
             self.refresh_neighborhoods()
         q_blk = torch.as_tensor(q_blk, dtype=torch.int32, device=self.device)
         p_blk = torch.as_tensor(p_blk, dtype=torch.int32, device=self.device)
-        self._lr.fill_(lr)
         self._epoch.fill_(epoch)
-        if self.graphed and draws is None:
-            self.graphs.check(self.graph_inputs(), self.generator)
-            key = ("step", num_hard, int(q_blk.shape[1]), rung(self.pool_mats))
-            return self.graphs.steps(lambda q, p: self.step(q, p, num_hard), q_blk, p_blk, key)
-        losses = torch.empty(q_blk.shape[0], dtype=torch.float32, device=self.device)
-        for s in range(q_blk.shape[0]):
-            losses[s] = self.step(q_blk[s], p_blk[s], num_hard,
-                                  None if draws is None else draws[s])
-        return losses
+        key = ("step", num_hard, int(q_blk.shape[1]), rung(self.pool_mats))
+        return q_blk, p_blk, key, lambda q, p, draws=None: self.step(q, p, num_hard, draws)
 
     # ---- epoch loop -------------------------------------------------------
 
@@ -662,9 +635,13 @@ class Trainer(TrainLoop):
         p_all = torch.as_tensor(batches[:, :, 1], dtype=torch.int32, device=self.device)
         return q_all, p_all, block, s_total, num_hard
 
-    def train_epoch(self, epoch: int) -> dict[str, float]:
-        cfg = self.cfg
-        refresh = cfg.train.refresh_neighborhoods_every
+    def _epoch_steps(self, epoch: int, batches: tuple) -> tuple[tuple, int]:
+        return (float(epoch), batches[4]), batches[3]
+
+    def train_epoch(self, epoch: int) -> dict[str, Any]:
+        """The neighbourhood refresh where it is due (span
+        ``trainer.refresh``), then the epoch's steps (``TrainLoop``)."""
+        refresh = self.cfg.train.refresh_neighborhoods_every
         refresh_s = 0.0
         if self.nbr_tables is None or (refresh and epoch % refresh == 0):
             with span("trainer.refresh", timed=True) as sp:
@@ -676,36 +653,14 @@ class Trainer(TrainLoop):
             self.log.log("neighborhoods", epoch=epoch, seconds=refresh_s,
                          **({} if zero is None else {"bwd_zero_weight_share": zero.tolist()}),
                          **({"dense_pad_cols": pad} if pad else {}))
+        return {**super().train_epoch(epoch), "refresh_seconds": round(refresh_s, 2)}
 
-        with span("trainer.epoch_batches"):
-            q_all, p_all, block, s_total, num_hard = self.epoch_batches(epoch)
-            self._sync()
-        step_losses = []
-        t_after_first = None
-        with span("trainer.steps", timed=True) as steps:
-            for s0 in range(0, q_all.shape[0], block):
-                step_losses.append(self.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block],
-                                                    self.plateau.lr, float(epoch), num_hard))
-                if t_after_first is None:
-                    self._sync()
-                    t_after_first = time.time_ns()
-            all_losses = torch.cat(step_losses).cpu().numpy()[:s_total]
-
-        bsz = int(q_all.shape[1])
-        n_timed_steps = q_all.shape[0] - block
-        timed_s = (steps.end_ns - t_after_first) / 1e9
-        exps = (bsz * n_timed_steps / timed_s if n_timed_steps and timed_s > 0
-                else bsz * block / max((t_after_first - steps.start_ns) / 1e9, 1e-9))
-        return {
-            "loss": float(all_losses.mean()),
-            "examples_per_sec": exps,
-            # Mean over the steps after the first block (host clock, device
-            # synchronized at both ends).
-            "step_ms_avg": timed_s / n_timed_steps * 1e3 if n_timed_steps else float("nan"),
-            "num_hard": num_hard,
-            "refresh_seconds": round(refresh_s, 2),
-            "step_wall_seconds": round(steps.seconds, 2),
-        }
+    def _epoch_stats(self, batches: tuple, times) -> dict[str, Any]:
+        bsz, block = int(batches[0].shape[1]), batches[2]
+        exps = (bsz * times.timed_steps / times.timed_seconds
+                if times.timed_steps and times.timed_seconds > 0
+                else bsz * block / max(times.first_block_seconds, 1e-9))
+        return {"examples_per_sec": exps, "num_hard": batches[4]}
 
     # ---- inference / eval -------------------------------------------------
 
@@ -717,11 +672,7 @@ class Trainer(TrainLoop):
         None or ``self.params``, which the graph reads in place."""
         if self.nbr_tables is None:
             self.refresh_neighborhoods()
-        if self.graphed and (params is None or params is self.params):
-            self.graphs.check(self.graph_inputs(), self.generator)
-            return self.graphs.embed(lambda: self._embed(self.params),
-                                     ("embed", rung(self.pool_mats)))
-        return self._embed(self.params if params is None else params)
+        return self._cached_call(("embed", rung(self.pool_mats)), self._embed, params)
 
     def _embed(self, params) -> torch.Tensor:
         m = self.data.num_movies

@@ -24,12 +24,12 @@ import pytest
 import torch
 
 from movie_recommendation_engine_tpu_torch import small_test_config
-from movie_recommendation_engine_tpu_torch.core import tree
+from movie_recommendation_engine_tpu_torch.core import graphs, tree
 from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
 from movie_recommendation_engine_tpu_torch.graph import dataset
 from movie_recommendation_engine_tpu_torch.models import pinsage
 from movie_recommendation_engine_tpu_torch.ops.hub_pool import take_rows
-from movie_recommendation_engine_tpu_torch.train import optim, step_graph
+from movie_recommendation_engine_tpu_torch.train import optim
 from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
 
 N, D, B, K = 26_709, 256, 4_596, 50
@@ -109,7 +109,7 @@ def test_graphed_dense_step_at_ml20m_rows_equals_eager_bitwise(cuda):
         twins.append(t)
     g, e = twins
     assert [tuple(pm.shape) for pm in g.pool_mats] == [(N, STRIDE)] * 2
-    assert step_graph.copy_into(e.pool_mats, g.pool_mats)
+    assert graphs.copy_into(e.pool_mats, g.pool_mats)
     e.params = tree.map_tree(torch.clone, g.params)
     e.opt_state = optim.AdamState(g.opt_state.step.clone(),
                                   tree.map_tree(torch.clone, g.opt_state.mu),

@@ -1,4 +1,4 @@
-"""The per-epoch programs as the card replays them (``core/graphs.ProgramGraphs``),
+"""The per-epoch programs as the card replays them (``core/graphs.GraphCache``),
 held to the JAX package on the CPU.
 
 JAX jits the neighbourhood refresh of each chunk (``_multilayer_neighborhoods``),
@@ -105,7 +105,7 @@ def test_refresh_given_jax_uniforms_equals_jax(walk_graphs, rows, batch, layers,
     ref = j_rw.all_node_neighborhood_tables(jg, key, layers, walks, length, k, iters,
                                             batch=batch, num_nodes=rows,
                                             restrict_below=restrict)
-    cache = graphs.ProgramGraphs(torch.device("cpu"))
+    cache = graphs.GraphCache(torch.device("cpu"))
     got = t_rw.all_node_neighborhood_tables(
         tg, layers, walks, length, k, iters, batch=batch, num_nodes=rows,
         restrict_below=restrict, graphs=cache, graphed=True,
@@ -254,7 +254,7 @@ def _fake_capture(cache, launches=(0, 0, 0, 0, 0)):
 
 
 def _fake_cache():
-    return _fake_capture(graphs.ProgramGraphs(torch.device("cpu")))
+    return _fake_capture(graphs.GraphCache(torch.device("cpu")))
 
 
 @pytest.fixture(scope="module")
@@ -286,7 +286,7 @@ def test_programs_run_eager_on_the_cpu_by_rule(small_data):
         tr.refresh_neighborhoods()
         tr.evaluate(pairs)
     assert not tr.graphs.programs.warm and not tr.graphs.programs.graphs
-    cache = graphs.ProgramGraphs(torch.device("cpu"))
+    cache = graphs.GraphCache(torch.device("cpu"))
     emb = torch.from_numpy(_unit_rows(np.random.default_rng(0), 50, 8))
     t_metrics.recommend(emb, torch.tensor([1, 2]), k=3, graphs=cache)    # graphed=None: cuda only
     t_metrics._ranks(emb, torch.tensor([1, 2]), torch.tensor([3, 4]), graphs=cache)
@@ -436,7 +436,7 @@ def test_one_graph_per_key():
 
 
 def test_a_replay_adds_its_capture_launches():
-    cache = _fake_capture(graphs.ProgramGraphs(torch.device("cpu")), launches=(2, 0, 0, 0, 0))
+    cache = _fake_capture(graphs.GraphCache(torch.device("cpu")), launches=(2, 0, 0, 0, 0))
     emb = torch.from_numpy(_unit_rows(np.random.default_rng(3), 40, 8))
     q = torch.tensor([0, 1, 2])
     t_metrics._ranks(emb, q, q, graphs=cache, graphed=True)
@@ -448,7 +448,7 @@ def test_a_replay_adds_its_capture_launches():
 
 
 def test_a_failed_capture_raises_and_drops_the_graphs():
-    cache = graphs.ProgramGraphs(torch.device("cpu"))      # the real capture needs a card
+    cache = graphs.GraphCache(torch.device("cpu"))      # the real capture needs a card
     emb = torch.from_numpy(_unit_rows(np.random.default_rng(3), 40, 8))
     q = torch.tensor([0, 1, 2])
     t_metrics._ranks(emb, q, q, graphs=cache, graphed=True)

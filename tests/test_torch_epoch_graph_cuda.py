@@ -1,5 +1,5 @@
 """Graphed per-epoch programs against eager ones on the card
-(``core/graphs.ProgramGraphs``).
+(``core/graphs.GraphCache``).
 
 Needs no JAX, so it runs on the card machine (``-m cuda --noconftest``);
 every test is marked ``cuda`` and skips without a card. A graphed trainer
@@ -136,7 +136,7 @@ def _unit_rows(n, d, seed=0):
 def test_graphed_programs_equal_eager(cuda, program):
     emb = _unit_rows(5000, 128).to(cuda)
     q = torch.randint(0, 5000, (3000,), generator=torch.Generator().manual_seed(1)).to(cuda)
-    cache = graphs.ProgramGraphs(cuda)
+    cache = graphs.GraphCache(cuda)
     if program == "ranks":
         def run(graphed):
             return metrics._ranks(emb, q, q.flip(0), graphs=cache, graphed=graphed)

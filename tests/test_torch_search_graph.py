@@ -45,7 +45,9 @@ from movie_recommendation_engine_tpu_torch.retrieval import bench, exact, ivf, l
 from movie_recommendation_engine_tpu_torch.retrieval.sharded import (ShardedExactIndex,
                                                                      ShardedIVFIndex)
 from movie_recommendation_engine_tpu_torch.retrieval.server import BatchingRecommender
-from movie_recommendation_engine_tpu_torch.train import step_graph
+from movie_recommendation_engine_tpu_torch.graph import dataset as t_dataset
+from movie_recommendation_engine_tpu_torch.train.loop import make_trainer
+from tests.test_torch_step_graph import HSTU
 
 
 def _unit_rows(rng, n, d):
@@ -334,9 +336,20 @@ def test_queries_reach_the_device_as_f32():
 
 
 def test_step_graphs_share_the_runner():
-    assert issubclass(step_graph.StepGraphs, graphs.GraphCache)
-    assert issubclass(graphs.SearchGraphs, graphs.GraphCache)
-    assert step_graph.Captured is graphs.Captured and step_graph.read_counts is graphs.read_counts
+    """The trainers' step caches, their programs and every index's caches
+    run through the one ``GraphCache.run`` and its one staleness check."""
+    caches = []
+    for cfg in (t_small_config(), t_small_config().override(HSTU)):
+        tr = make_trainer(cfg, t_dataset.load(cfg), device="cpu")
+        caches += [tr.graphs, tr.graphs.programs]
+    for make in FORMS.values():
+        index = make()
+        caches += [index.graphs, getattr(index, "build_graphs", index.graphs)]
+    for cache in caches:
+        assert isinstance(cache, graphs.GraphCache)
+        assert type(cache).run is graphs.GraphCache.run
+        assert type(cache)._check is graphs.GraphCache._check
+    assert {c.event for c in caches} == {"step_graph", "program_graph", "search_graph"}
 
 
 # ---------------------------------------------------------------------------

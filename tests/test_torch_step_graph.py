@@ -1,5 +1,5 @@
-"""The port's train step as the card replays it (``train/step_graph.py``),
-held to the JAX package on the CPU.
+"""The port's train step as the card replays it (``train/loop.py`` through
+``core/graphs.GraphCache.run``), held to the JAX package on the CPU.
 
 A captured step reads every number of the update from the device: Adam's
 step count and ``lr`` are 0-d tensors, and ``curriculum_loss`` takes the
@@ -7,12 +7,14 @@ epoch as one, as JAX traces them into its jitted step. These tests hold
 those forms to JAX's functions (Adam over 5 steps in f32 within 1e-7, the
 curriculum loss within 1e-6), the trainer's steps to JAX's ``_run_steps``
 given JAX's draws (the tolerances of ``test_torch_train.py``) with every
-param and Adam storage kept in place, and the graph cache's rules: which
-events keep the graphs (tables of the same shapes are copied into the
-captured storages; a reseed resets the registered generator in place) and
-which drop them, and that a replay counts its launches. No capture runs
-here; ``test_torch_step_graph_cuda.py`` holds graphed steps against eager
-ones on the card.
+param and Adam storage kept in place, and the graph cache's rules through
+the trainers' own ``train_steps`` on stand-in graphs: which events keep the
+graphs (tables of the same shapes are copied into the captured storages; a
+reseed resets the registered generator in place) and which drop them, that
+a replay counts its launches, and, for PinSage and HSTU alike, that the
+first step under a key runs eager and that the CPU and given draws run
+eager. No capture runs here; ``test_torch_step_graph_cuda.py`` holds graphed
+steps against eager ones on the card.
 """
 
 from __future__ import annotations
@@ -31,15 +33,17 @@ from movie_recommendation_engine_tpu.train import optim as j_optim
 from movie_recommendation_engine_tpu.train.trainer import Trainer as JTrainer
 from movie_recommendation_engine_tpu_torch import small_test_config as t_small_config
 from movie_recommendation_engine_tpu_torch.config import Config as TConfig
-from movie_recommendation_engine_tpu_torch.core import tree
+from movie_recommendation_engine_tpu_torch.core import graphs, tree
 from movie_recommendation_engine_tpu_torch.core.checkpoint import params_from_jax
 from movie_recommendation_engine_tpu_torch.graph import dataset as t_dataset
 from movie_recommendation_engine_tpu_torch.models import losses as t_losses
 from movie_recommendation_engine_tpu_torch.ops import pool as t_pool
 from movie_recommendation_engine_tpu_torch.ops.pool import segment_layout
 from movie_recommendation_engine_tpu_torch.train import optim as t_optim
-from movie_recommendation_engine_tpu_torch.train import step_graph
+from movie_recommendation_engine_tpu_torch.train.seq_trainer import SeqTrainer
 from movie_recommendation_engine_tpu_torch.train.trainer import Trainer as TTrainer
+from movie_recommendation_engine_tpu_torch.train.trainer import rung
+from tests.test_torch_epoch_graph import _fake_capture as _fake_program_capture
 from tests.test_torch_train import _jax_draws, _port_trainer_like, _rung, _t
 
 
@@ -173,6 +177,24 @@ class _FakeGraph:
         self.replays += 1
 
 
+def _fake_capture(cache) -> None:
+    """Replaces ``cache.capture`` with one that runs nothing and keeps a
+    ``_FakeGraph`` whose static loss is 1.5 and whose replay counts
+    (2, 2, 2, 1, 0) launches (no capture runs on the CPU)."""
+    def capture(key, fn, inputs, generator=None):
+        g = graphs.Captured(_FakeGraph(), tuple(x.clone() for x in inputs),
+                            torch.tensor(1.5), (2, 2, 2, 1, 0))
+        cache.graphs[key] = g
+        return g
+    cache.capture = capture
+
+
+HSTU = {"model.arch": "hstu", "model.embed_dim": 32, "model.num_layers": 2,
+        "model.hstu_heads": 2, "model.hstu_dqk": 8, "model.hstu_dv": 8,
+        "model.hstu_max_len": 24, "train.batch_size": 16, "train.num_negative_samples": 8,
+        "data.use_data_subset": False}
+
+
 def _gather_trainer() -> TTrainer:
     cfg = t_small_config().override({"model.pool_impl": "gather",
                                      "model.gather_impl": "pallas"})
@@ -181,17 +203,38 @@ def _gather_trainer() -> TTrainer:
     return tt
 
 
+def _hstu_trainer() -> SeqTrainer:
+    cfg = t_small_config().override(HSTU)
+    return SeqTrainer(cfg, t_dataset.load(cfg), device="cpu")
+
+
+TRAINERS = {"pinsage": _gather_trainer, "hstu": _hstu_trainer}
+
+
+def _block(tr, rows: int) -> tuple:
+    """The first ``rows`` steps of epoch 0: the two batch blocks and the
+    rest of ``train_steps``'s arguments after ``lr``."""
+    batches = tr.epoch_batches(0)
+    args, _ = tr._epoch_steps(0, batches)
+    return batches[0][:rows], batches[1][:rows], *args
+
+
+def _draws(tr, a, args) -> object:
+    return (tr.draw_step(a, args[1]) if isinstance(tr, TTrainer)
+            else tr.draw_step(int(a.shape[0])))
+
+
 def _with_fake_graph(tt) -> tuple:
-    """Records the trainer's addresses as a capture would and puts one
-    stand-in graph in its cache."""
-    tt.graphs.check(tt.graph_inputs(), tt.generator)
-    key = ("step", 0, 64, step_graph.rung(tt.pool_mats))
-    g = step_graph.Captured(_FakeGraph(), tuple(torch.zeros(64, dtype=torch.int32)
-                                                for _ in range(2)),
-                            torch.tensor(1.5), (2, 2, 2, 1, 0))
-    tt.graphs.graphs[key] = g
-    tt.graphs.warm.add(key)
-    return key, g
+    """The trainer graphed on stand-in graphs: a block of two steps, the
+    first eager, the second captured and replayed. Returns the step's key,
+    its graph and the block."""
+    tt.graphed = True
+    _fake_capture(tt.graphs)
+    _fake_program_capture(tt.graphs.programs)
+    blk = _block(tt, 2)
+    tt.train_steps(blk[0], blk[1], 1e-3, *blk[2:])
+    (key,) = tt.graphs.graphs
+    return key, tt.graphs.graphs[key], blk
 
 
 def _event(tt, event: str, tmp_path) -> None:
@@ -210,8 +253,6 @@ def _event(tt, event: str, tmp_path) -> None:
         tt.params = tree.map_tree(torch.clone, tt.params)
     elif event == "other_generator":
         tt.generator = torch.Generator().manual_seed(3)
-    # train_steps and movie_embeddings check the addresses before each use.
-    tt.graphs.check(tt.graph_inputs(), tt.generator)
 
 
 @pytest.mark.parametrize("event, kept", [
@@ -220,27 +261,31 @@ def _event(tt, event: str, tmp_path) -> None:
     ("params_assigned", False), ("other_generator", False)])
 def test_graph_cache_keeps_or_drops_its_graphs(event, kept, tmp_path):
     tt = _gather_trainer()
-    key, _ = _with_fake_graph(tt)
+    key, g, (q, p, *args) = _with_fake_graph(tt)
     _event(tt, event, tmp_path)
-    assert (key in tt.graphs.graphs) == kept
-    assert (key in tt.graphs.warm) == kept
+    # The next block checks what its graphs read before its first step: a
+    # kept graph replays, a dropped one leaves the key to an eager step.
+    tt.train_steps(q[:1], p[:1], 1e-3, *args)
+    assert (tt.graphs.graphs.get(key) is g) == kept
+    assert g.graph.replays == 1 + kept
+    assert (key in tt.graphs.warm) and (key in tt.graphs.graphs) == kept
 
 
 def test_new_tables_are_copied_into_the_captured_storages():
     tt = _gather_trainer()
     _with_fake_graph(tt)
-    old = step_graph.tensors((tt.nbr_tables, tt.pool_mats, tt.bwd_layouts))
+    old = graphs.tensors((tt.nbr_tables, tt.pool_mats, tt.bwd_layouts))
     ptrs = [t.data_ptr() for t in old]
     new = [(nb.flip(0).clone(), w.flip(0).clone()) for nb, w in tt.nbr_tables]
     tt.set_neighborhood_tables(new)
-    now = step_graph.tensors((tt.nbr_tables, tt.pool_mats, tt.bwd_layouts))
+    now = graphs.tensors((tt.nbr_tables, tt.pool_mats, tt.bwd_layouts))
     assert [t.data_ptr() for t in now] == ptrs
     for (nb, w), (got_nb, got_w) in zip(new, tt.nbr_tables):
         assert torch.equal(got_nb, nb) and torch.equal(got_w, w)
     limit = min(tt.valid_limit, tt.table_rows)
     ref = segment_layout(new[0][0], limit)
-    assert all(torch.equal(a, b) for a, b in zip(step_graph.tensors(tt.bwd_layouts[0]),
-                                                 step_graph.tensors(ref)))
+    assert all(torch.equal(a, b) for a, b in zip(graphs.tensors(tt.bwd_layouts[0]),
+                                                 graphs.tensors(ref)))
     # The new tables' own storages are not kept: a caller's later edit of
     # them does not reach the trainer.
     new[0][0].zero_()
@@ -249,54 +294,58 @@ def test_new_tables_are_copied_into_the_captured_storages():
 
 def test_copy_into_needs_one_structure():
     a = {"x": torch.zeros(3), "y": [torch.ones(2, dtype=torch.int32)]}
-    assert not step_graph.copy_into(a, {"x": torch.ones(4), "y": [torch.zeros(2)]})
-    assert not step_graph.copy_into(a, {"x": torch.ones(3)})
+    assert not graphs.copy_into(a, {"x": torch.ones(4), "y": [torch.zeros(2)]})
+    assert not graphs.copy_into(a, {"x": torch.ones(3)})
     assert torch.equal(a["x"], torch.zeros(3))           # nothing copied
-    assert step_graph.copy_into(a, {"x": torch.ones(3), "y": [torch.zeros(2, dtype=torch.int32)]})
+    assert graphs.copy_into(a, {"x": torch.ones(3), "y": [torch.zeros(2, dtype=torch.int32)]})
     assert torch.equal(a["x"], torch.ones(3)) and int(a["y"][0].sum()) == 0
-    assert not step_graph.copy_into(None, a)
+    assert not graphs.copy_into(None, a)
 
 
 def test_rung_names_each_layer():
     tt = _gather_trainer()
-    assert step_graph.rung(tt.pool_mats) == "gather"
+    assert rung(tt.pool_mats) == "gather"
     dense = TTrainer(t_small_config(), t_dataset.load(t_small_config()), device="cpu")
     dense.refresh_neighborhoods()
-    assert step_graph.rung(dense.pool_mats) == "dense,dense"
+    assert rung(dense.pool_mats) == "dense,dense"
 
 
 def test_a_replay_counts_the_launches_its_capture_recorded():
     tt = _gather_trainer()
-    key, g = _with_fake_graph(tt)
-    counts0 = step_graph.read_counts()
-    q = torch.arange(3 * 64, dtype=torch.int32).reshape(3, 64)
-    calls = []
-
-    def eager(qq, pp):
-        calls.append(qq)
-        return torch.tensor(0.5)
-
-    losses = tt.graphs.steps(eager, q, q + 1, key)
-    assert not calls and g.graph.replays == 3
+    tt.graphed = True
+    _fake_capture(tt.graphs)
+    q, p, *args = _block(tt, 4)
+    q, p = (x[torch.arange(4) % x.shape[0]] for x in (q, p))   # four steps
+    tt.train_steps(q[:1], p[:1], 1e-3, *args)              # eager: warms the key
+    counts0 = graphs.read_counts()
+    losses = tt.train_steps(q[1:], p[1:], 1e-3, *args)     # captured, then replayed
+    (g,) = tt.graphs.graphs.values()
+    assert g.graph.replays == 3
     assert torch.equal(losses, torch.full((3,), 1.5))
-    assert torch.equal(g.inputs[0], q[2]) and torch.equal(g.inputs[1], q[2] + 1)
-    assert step_graph.read_counts() == tuple(c + 3 * d for c, d in zip(counts0, g.counts))
+    assert torch.equal(g.inputs[0], q[3]) and torch.equal(g.inputs[1], p[3])
+    assert graphs.read_counts() == tuple(c + 3 * d for c, d in zip(counts0, g.counts))
     assert t_pool.LAUNCHES == counts0[0] + 6
 
 
-def test_the_first_step_under_a_new_key_runs_eager():
-    tt = _gather_trainer()
-    q = torch.arange(64, dtype=torch.int32)[None]
-    out = tt.graphs.steps(lambda qq, pp: qq.sum().float(), q, q, ("step", 3, 64, "gather"))
-    assert float(out[0]) == float(q.sum()) and ("step", 3, 64, "gather") in tt.graphs.warm
-    assert not tt.graphs.graphs
+@pytest.mark.parametrize("arch", sorted(TRAINERS))
+def test_the_first_step_under_a_new_key_runs_eager(arch):
+    tr, twin = TRAINERS[arch](), TRAINERS[arch]()
+    tr.graphed = True
+    _fake_capture(tr.graphs)
+    a, b, *args = _block(tr, 1)
+    out = tr.train_steps(a, b, 1e-3, *args)
+    assert torch.equal(out, twin.train_steps(a, b, 1e-3, *args))   # the twin: eager on the CPU
+    (key,) = tr.graphs.warm
+    assert key[0] == {"pinsage": "step", "hstu": "seq_step"}[arch] and not tr.graphs.graphs
 
 
-def test_steps_run_eager_by_rule_on_the_cpu_and_with_draws():
-    tt = _gather_trainer()
-    assert tt.graphed is False          # the CPU: eager by rule
-    tt.graphed = True                   # draws given: eager all the same
-    q_all, p_all, _, _, _ = tt.epoch_batches(0)
-    d = tt.draw_step(q_all[0], 0)
-    out = tt.train_steps(q_all[:1], p_all[:1], 1e-3, 0.0, 0, draws=[d])
-    assert out.shape == (1,) and torch.isfinite(out).all() and not tt.graphs.graphs
+@pytest.mark.parametrize("arch", sorted(TRAINERS))
+def test_steps_run_eager_by_rule_on_the_cpu_and_with_draws(arch):
+    tr = TRAINERS[arch]()
+    assert tr.graphed is False          # the CPU: eager by rule
+    tr.graphed = True                   # draws given: eager all the same
+    _fake_capture(tr.graphs)
+    a, b, *args = _block(tr, 2)
+    out = tr.train_steps(a, b, 1e-3, *args, draws=[_draws(tr, a[s], args) for s in range(2)])
+    assert out.shape == (2,) and torch.isfinite(out).all()
+    assert not tr.graphs.graphs and not tr.graphs.warm

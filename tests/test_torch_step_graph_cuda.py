@@ -1,4 +1,4 @@
-"""Graphed steps against eager steps on the card (``train/step_graph.py``).
+"""Graphed steps against eager steps on the card (``train/loop.py``).
 
 Needs no JAX, so it runs on the card machine (``-m cuda --noconftest``);
 every test is marked ``cuda`` and skips without a card. A graphed trainer
@@ -19,10 +19,10 @@ import pytest
 import torch
 
 from movie_recommendation_engine_tpu_torch import small_test_config
-from movie_recommendation_engine_tpu_torch.core import tree
+from movie_recommendation_engine_tpu_torch.core import graphs, tree
 from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
 from movie_recommendation_engine_tpu_torch.graph import dataset
-from movie_recommendation_engine_tpu_torch.train import optim, step_graph
+from movie_recommendation_engine_tpu_torch.train import optim
 from movie_recommendation_engine_tpu_torch.train.trainer import Trainer
 
 RUNGS = {"gather": {"model.pool_impl": "gather", "model.gather_impl": "pallas"},
@@ -58,7 +58,7 @@ def _twins(cfg, device) -> tuple[Trainer, Trainer]:
     eager = Trainer(cfg, data, logger=MetricsLogger(io.StringIO()), device=device)
     eager.graphed = False
     eager.set_neighborhood_tables(graphed.nbr_tables)
-    assert step_graph.copy_into((eager.pool_mats, eager.bwd_layouts),
+    assert graphs.copy_into((eager.pool_mats, eager.bwd_layouts),
                                 (graphed.pool_mats, graphed.bwd_layouts))
     eager.params = tree.map_tree(torch.clone, graphed.params)
     eager.opt_state = optim.AdamState(graphed.opt_state.step.clone(),
@@ -68,7 +68,7 @@ def _twins(cfg, device) -> tuple[Trainer, Trainer]:
 
 
 def _epochs(t: Trainer) -> tuple[torch.Tensor, tuple]:
-    before = step_graph.read_counts()
+    before = graphs.read_counts()
     losses = []
     for e in (0, 1):
         t._rng_words()
@@ -77,7 +77,7 @@ def _epochs(t: Trainer) -> tuple[torch.Tensor, tuple]:
             losses.append(t.train_steps(q_all[s0:s0 + block], p_all[s0:s0 + block], 1e-3,
                                         float(e), num_hard))
     torch.cuda.synchronize()
-    return torch.cat(losses), tuple(a - b for a, b in zip(step_graph.read_counts(), before))
+    return torch.cat(losses), tuple(a - b for a, b in zip(graphs.read_counts(), before))
 
 
 @pytest.mark.cuda
@@ -106,9 +106,9 @@ def test_graphed_embedding_pass_equals_eager(cuda, rung):
     cfg = small_test_config().override(RUNGS[rung])
     graphed, eager = _twins(cfg, cuda)
     ref = eager.movie_embeddings()
-    before = step_graph.read_counts()
+    before = graphs.read_counts()
     outs = [graphed.movie_embeddings() for _ in range(3)]   # eager, capture + replay, replay
-    counts = tuple(a - b for a, b in zip(step_graph.read_counts(), before))
+    counts = tuple(a - b for a, b in zip(graphs.read_counts(), before))
     assert any(k[0] == "embed" for k in graphed.graphs.graphs)
     for out in outs:
         assert torch.equal(_bits(out), _bits(ref))
