@@ -21,8 +21,10 @@ chunks (``_CHUNK_BYTES``), so no full-size copy is made. With
 ``gather_impl="pallas"`` the residual runs through ``ops.pool.gather_pool``,
 the CUDA kernel on a CUDA tensor. Selections break ties toward the lower id,
 as JAX's stable argsort and ``lax.top_k`` do, and every sum the builders make
-is deterministic (sort-based), so a refresh on the same tables gives the same
-operator.
+is deterministic, so a refresh on the same tables gives the same operator:
+the device builder's column mass is the segment reduction of ``ops.pool``
+(``segment_layout`` and the segment route of ``gather_pool_bwd``: fixed
+order, no atomics), its slab cells a sort-based scatter (``scatter_cells``).
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .pool import SegmentLayout, gather_pool
+from .pool import (SegmentLayout, gather_pool, gather_pool_bwd,
+                   gather_pool_bwd_segment_plain, segment_layout)
 
 _EPS = 1e-12
 # Bytes of the converted slab rows one GEMM of the head product takes when
@@ -183,10 +186,12 @@ def build_hub_pool_device(nbrs: torch.Tensor, weights: torch.Tensor,
                           residual: int = 8, dtype: torch.dtype = torch.bfloat16,
                           rows: tuple[int, int] | None = None) -> tuple[HubPool, dict]:
     """``build_hub_pool`` in tensor ops on the tables' device: the column
-    mass by a sort-based scatter, the head and each row's residual by stable
-    descending sorts (lower id first on ties), the slab by ``scatter_cells``
-    straight into ``dtype`` (one rounding from f32). The two stats are the
-    only values read back to the host. ``rows`` as ``build_hub_pool``."""
+    mass by the segment reduction (``column_mass``), the head and each row's
+    residual by stable descending sorts (lower id first on ties), the slab
+    by ``scatter_cells`` straight into ``dtype`` (one rounding from f32).
+    The stats add ``mass_slots_skipped``, the share of the table's slots the
+    column mass left out for a weight of 0; the three stats are the only
+    values read back to the host. ``rows`` as ``build_hub_pool``."""
     n, k = nbrs.shape
     if head <= 0:
         head = auto_head(n, dtype)
@@ -203,8 +208,7 @@ def build_hub_pool_device(nbrs: torch.Tensor, weights: torch.Tensor,
     w = torch.where(wsum > 0, w / wsum.clamp_min(_EPS), 0.0)
     cols = nbrs.long().clamp(0, n - 1)
 
-    col_mass = torch.zeros(n, dtype=torch.float32, device=dev)
-    col_mass.index_put_((cols.reshape(-1),), w.reshape(-1), accumulate=True)
+    col_mass, kept_slots = column_mass(cols.to(torch.int32), w)
     head_ids = torch.sort(col_mass, descending=True, stable=True).indices[:h]
     head_pos = torch.full((n,), -1, dtype=torch.int64, device=dev)
     head_pos[head_ids] = torch.arange(h, device=dev)
@@ -232,12 +236,35 @@ def build_hub_pool_device(nbrs: torch.Tensor, weights: torch.Tensor,
     sel, pos = in_head[r0:r1], pos[r0:r1]
     cells = torch.arange(r1 - r0, device=dev)[:, None].expand(r1 - r0, k)
     a_head = scatter_cells((r1 - r0, h), cells[sel], pos[sel], w_head[r0:r1][sel], dtype)
-    dropped, head_frac = torch.stack([dropped, head_frac]).tolist()
+    dropped, head_frac, kept_slots = torch.stack(
+        [dropped.double(), head_frac.double(), kept_slots.double()]).tolist()
     hp = HubPool(a_head=a_head, head_ids=head_ids, res_nbrs=res_ids[r0:r1].contiguous(),
                  res_w=res_w[r0:r1].contiguous())
     stats = {"dropped_mass": dropped, "head_cols": h, "residual_per_row": r,
-             "a_bytes_built": (r1 - r0) * h * dtype.itemsize, "head_mass": head_frac}
+             "a_bytes_built": (r1 - r0) * h * dtype.itemsize, "head_mass": head_frac,
+             "mass_slots_skipped": (n * k - kept_slots) / max(n * k, 1)}
     return hp, stats
+
+
+def column_mass(cols: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(f32 [N] ``sum of w[b, k] over cols[b, k] == c``, the count of slots
+    summed, a 0-d tensor) for ``cols`` [N, K] int32 in ``[0, N)``: the
+    gradient of a one-column table under a cotangent of ones, by the segment
+    route. Its layout leaves out the slots of weight 0 (the walk tables'
+    sentinels, ~8% of them at ML-25M, which all clamp onto the last column)
+    and cuts each long column into chunks, so no warp walks a long run
+    alone; each column is summed in slot order within its chunks, the
+    partials in chunk order, the same bits on every run: the kernels on the
+    card, ``gather_pool_bwd_segment_plain`` on the CPU, bitwise equal, so
+    near-equal columns rank alike on both."""
+    n = cols.shape[0]
+    layout = segment_layout(cols, n, weights=w)
+    ones = torch.ones((n, 1), dtype=torch.float32, device=cols.device)
+    if cols.is_cuda:
+        d_table, _ = gather_pool_bwd(ones, cols, w, n, ones, need_weights=False, layout=layout)
+    else:
+        d_table = gather_pool_bwd_segment_plain(ones, cols, w, n, ones, layout)
+    return d_table[:, 0], layout.row_ptr[-1]
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

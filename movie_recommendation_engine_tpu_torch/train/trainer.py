@@ -50,7 +50,9 @@ replays, never a capture. Where the backward kernel's layouts are built, the
 event's ``bwd_zero_weight_share`` gives, per layout, the share of its table's
 slots left out for a weight of 0; on the dense and hybrid rungs its
 ``dense_pad_cols`` gives, per [N, N] matrix, the zero columns its row stride
-adds (``_dense_matrices``).
+adds (``_dense_matrices``). On the hub rung each build's ``hub_pool`` event
+gives ``mass_slots_skipped``, the share of the walk table's slots (its
+sentinels, weight 0) that the column mass left out.
 """
 
 from __future__ import annotations

@@ -639,13 +639,24 @@ def test_trainer_logs_the_zero_weight_share(tmp_path):
     """An epoch on the hub rung with the kernels logs, in its
     ``neighborhoods`` event, the share of the residual's slots that the
     refreshed layout leaves out for a weight of 0; on the torch gather (no
-    layouts) the event has no such field."""
+    layouts) the event has no such field. On both, each layer's
+    ``hub_pool`` event gives ``mass_slots_skipped``, the share of its walk
+    table's slots that the column mass left out: the sentinels past the
+    valid limit and the other slots of weight 0."""
     over = {**_AUTO_AT_SCALE, "model.hub_pool_max_dropped_mass": 1.0,
             "train.max_pairs_per_epoch": 64}
     for impl in ("pallas", "xla"):
         _, tt, _, _ = _both_trainers(tmp_path, {**over, "model.gather_impl": impl})
         tt.train_epoch(0)
         (event,) = [e for e in tt.log.history if e["event"] == "neighborhoods"]
+        builds = [e for e in tt.log.history if e["event"] == "hub_pool"][-2:]
+        assert [type(m).__name__ for m in tt.pool_mats] == ["HubPool", "HubPool"]
+        for build, (nbrs, w) in zip(builds, tt.nbr_tables):
+            kept = torch.where(nbrs < tt.valid_limit, w, 0.0)
+            zero = (kept == 0) | (kept.sum(dim=1, keepdim=True) == 0)
+            assert build["mass_slots_skipped"] == pytest.approx(float(zero.float().mean()),
+                                                                abs=1e-7)
+        assert any(e["mass_slots_skipped"] > 0 for e in builds)
         if impl == "xla":
             assert "bwd_zero_weight_share" not in event
             continue

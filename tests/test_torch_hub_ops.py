@@ -42,6 +42,33 @@ def popularity_tables(n: int, k: int = 50, seed: int = 0):
     return torch.from_numpy(nb.astype(np.int32)), torch.from_numpy(w.astype(np.float32))
 
 
+def sentinel_tables(n: int, k: int, long_rows: int, seed: int = 0, share: float = 0.08,
+                    counts: bool = False):
+    """Walk-table-shaped ids and weights with the walk tables' sentinels:
+    ids distinct within a row (a random start plus increasing gaps), column
+    5 put in ``long_rows`` rows, then about ``share`` of the other slots
+    made sentinels (id n, past the valid limit n, weight 0), which all
+    clamp onto column n - 1. Weights are lognormal, or integer visit counts
+    (``counts``: every row sum exact, so the normalized weights are the same
+    bits on every device); rows are not normalized (the builders do)."""
+    rng = np.random.default_rng(seed)
+    gaps = rng.integers(1, n // k, (n, k))
+    nb = (rng.integers(0, n, (n, 1)) + np.cumsum(gaps, axis=1)) % n
+    rows = rng.choice(n, long_rows, replace=False)
+    nb[rows, 0] = np.where((nb[rows] == 5).any(axis=1), nb[rows, 0], 5)
+    sent = (rng.random((n, k)) < share) & (nb != 5)
+    w = (rng.integers(1, 8, (n, k)).astype(np.float32) if counts
+         else rng.lognormal(0.0, 1.0, (n, k)).astype(np.float32))
+    nb, w = np.where(sent, n, nb), np.where(sent, 0.0, w)
+    return torch.from_numpy(nb.astype(np.int32)), torch.from_numpy(w.astype(np.float32))
+
+
+def _normalized(nb: torch.Tensor, w: torch.Tensor, limit: int) -> torch.Tensor:
+    w = torch.where(nb < limit, w, 0.0)
+    s = w.sum(dim=1, keepdim=True)
+    return torch.where(s > 0, w / s.clamp_min(1e-12), 0.0)
+
+
 def _bits(x: torch.Tensor) -> torch.Tensor:
     ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
     return x.view(ints[x.element_size()])
@@ -82,6 +109,64 @@ def test_build_hub_pool_device_is_repeatable():
     assert sa == sb
     for x, y in zip(a, b):
         assert torch.equal(_bits(x), _bits(y))
+
+
+def test_column_mass_leaves_the_sentinels_out():
+    """The column mass of a table whose sentinels (8% of the slots, weight
+    0) all clamp onto the last column and whose column 5 is longer than
+    100 chunks: within 1e-6 relative of a float64 sum on every column; the
+    layout keeps exactly the slots of nonzero weight and cuts column 5 into
+    chunks; the last column sums its own slots alone."""
+    n, k = 4096, 16
+    nb, w = sentinel_tables(n, k, long_rows=3500)
+    w = _normalized(nb, w, n)
+    cols = nb.clamp(0, n - 1)
+    mass, kept = t_hub.column_mass(cols, w)
+    ref = np.bincount(cols.reshape(-1).numpy(), weights=w.reshape(-1).double().numpy(),
+                      minlength=n)
+    sent = nb >= n
+    assert 0.07 < float(sent.float().mean()) < 0.09
+    assert int(kept) == int((~sent).sum())
+    assert int((cols == 5).sum()) > 100 * t_pool.SEGMENT_CHUNK
+    np.testing.assert_allclose(mass.double().numpy(), ref, rtol=1e-6, atol=0)
+    assert float(mass[n - 1]) == pytest.approx(float(w[nb == n - 1].double().sum()), rel=1e-6)
+    lay = t_pool.segment_layout(cols, n, weights=w)
+    c = int(lay.totals[0])
+    assert int((lay.chunks[:c, 0] == 5).sum()) == -(-int((cols == 5).sum()) // lay.chunk)
+    assert int((lay.chunks[:c, 0] == n - 1).sum()) == 1
+
+
+def test_hub_build_with_sentinels_matches_the_host_builder():
+    """The device builder on a table of sentinels and one long column: the
+    host builder's head, residual and stats (its column mass a float64
+    ``bincount``; the masses here apart by more than twice the 1e-6 the
+    column mass is held to, so no near-tie can flip),
+    weights and slab within 1e-6; bitwise repeatable; ``mass_slots_skipped``
+    is the table's sentinel share."""
+    n, k, head = 4096, 16, 256
+    nb, w = sentinel_tables(n, k, long_rows=3500)
+    ref_mass = np.sort(np.bincount(nb.clamp(0, n - 1).reshape(-1).numpy(),
+                                   weights=_normalized(nb, w, n).reshape(-1).double().numpy(),
+                                   minlength=n))[::-1][:head + 1]
+    assert ((ref_mass[:-1] - ref_mass[1:]) / ref_mass[:-1]).min() > 2e-6
+    got, st = t_hub.build_hub_pool_device(nb, w, valid_limit=n, head=head, residual=4,
+                                          dtype=torch.float32)
+    again, st2 = t_hub.build_hub_pool_device(nb, w, valid_limit=n, head=head, residual=4,
+                                             dtype=torch.float32)
+    ref, rst = t_hub.build_hub_pool(nb, w, valid_limit=n, head=head, residual=4,
+                                    dtype=torch.float32)
+    assert st == st2
+    for x, y in zip(got, again):
+        assert torch.equal(_bits(x), _bits(y))
+    assert torch.equal(got.head_ids, ref.head_ids) and int(got.head_ids[0]) == 5
+    assert torch.equal(got.res_nbrs, ref.res_nbrs)
+    torch.testing.assert_close(got.res_w, ref.res_w, atol=1e-6, rtol=0)
+    torch.testing.assert_close(got.a_head, ref.a_head, atol=1e-6, rtol=1e-6)
+    for key in ("head_cols", "residual_per_row", "a_bytes_built"):
+        assert st[key] == rst[key], key
+    for key in ("dropped_mass", "head_mass"):
+        assert st[key] == pytest.approx(rst[key], abs=1e-6), key
+    assert st["mass_slots_skipped"] == pytest.approx(float((nb >= n).float().mean()), abs=1e-7)
 
 
 @pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
@@ -153,6 +238,45 @@ def test_hub_build_on_the_card_equals_cpu(cuda, dtype):
                                rtol=step[dtype])
     for key in ("dropped_mass", "head_mass"):
         assert st[key] == pytest.approx(rst[key], abs=1e-6)
+
+
+@pytest.mark.cuda
+def test_hub_build_at_the_cell_shape_equals_cpu(cuda):
+    """59,393 x 50 with ~8% sentinels and a 14,000-slot column, visit-count
+    weights (the same normalized bits on both devices): the card's column
+    mass bitwise equal to the CPU's (the segment kernels against their
+    plain version, ties included), so the same head and residual; each
+    build launches the segment backward once; two builds bitwise equal."""
+    n, k = 59_393, 50
+    nb, w = sentinel_tables(n, k, long_rows=14_000, seed=4, counts=True)
+    cols = nb.clamp(0, n - 1)
+    wn = _normalized(nb, w, n)
+    mass, kept = t_hub.column_mass(cols.to(cuda), wn.to(cuda))
+    ref_mass, ref_kept = t_hub.column_mass(cols, wn)
+    assert torch.equal(_bits(mass.cpu()), _bits(ref_mass)) and int(kept) == int(ref_kept)
+
+    def build(dev):
+        return t_hub.build_hub_pool_device(nb.to(dev), w.to(dev), valid_limit=n, head=0,
+                                           residual=8, dtype=torch.bfloat16)
+
+    before = (t_pool.SEGMENT_LAUNCHES, t_pool.PLAN_LAUNCHES)
+    got, st = build(cuda)
+    again, st2 = build(cuda)
+    torch.cuda.synchronize()
+    assert (t_pool.SEGMENT_LAUNCHES, t_pool.PLAN_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    ref, rst = build("cpu")
+    assert st == st2
+    for x, y in zip(got, again):
+        assert torch.equal(_bits(x), _bits(y))
+    assert torch.equal(got.head_ids.cpu(), ref.head_ids)
+    assert torch.equal(got.res_nbrs.cpu(), ref.res_nbrs)
+    torch.testing.assert_close(got.res_w.cpu(), ref.res_w, atol=1e-6, rtol=0)
+    torch.testing.assert_close(got.a_head.cpu().float(), ref.a_head.float(), atol=1e-6,
+                               rtol=2.0 ** -7)
+    assert st["mass_slots_skipped"] == rst["mass_slots_skipped"]
+    assert st["mass_slots_skipped"] == pytest.approx(float((nb >= n).float().mean()), abs=1e-7)
+    for key in ("dropped_mass", "head_mass"):    # f32 sums of 3M weights, another order
+        assert st[key] == pytest.approx(rst[key], abs=1e-5)
 
 
 def _to(hp, device):
