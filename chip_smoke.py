@@ -212,6 +212,19 @@ Phases, one JSON line each:
    against ``index_add_`` reported. Launch counts of one forward and
    backward of both lookups; the longest row (slots, chunks, and whether
    pass 2 sums it); the kernels' times beside their bounds.
+17. dlrm    — DLRM-DCNv2's table gradient (``ops/pool.compact_rows`` /
+   ``compact_grad``) at the ``criteo-dlrm-train`` cell's 100-id feature: a
+   5,000,000-row slice, B = 8,192, K = 100 (Zipf(1.05) first ids, the rest
+   uniform). The card's chunk plan equal to ``segment_plan_plain`` there
+   (limit B * K = 819,200) and at a PinSage layer's limit (59,393); the
+   compact layout, rows and count equal to the CPU's; the compact gradient
+   bitwise equal to ``gather_pool_bwd_segment_plain`` on its layout and to
+   the dense segment route's touched rows; the plan's, the compact rows' and
+   the gradient's device times. Then one eager epoch of a ``ClickTrainer``
+   at the cell's widths over five small tables, the launch counts zeroed
+   just before and read just after: per step and bag one forward, one
+   segment backward and one plan of ``pool.PLAN_KERNELS`` launches, and no
+   call of ``gather_pool_bwd``.
 
 Then the ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``. Any failure ends the run with a non-zero
@@ -225,6 +238,7 @@ from __future__ import annotations
 import gc
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1019,6 +1033,122 @@ def hstu_lookup_ids(seed: int, n: int, b: int = 128, length: int = 200,
     return window[:, :length].reshape(-1, 1), cand.reshape(-1, 1)
 
 
+def dlrm_bag_ids(n: int, b: int, k: int, seed: int, dev) -> torch.Tensor:
+    """[b, k] int32: a Zipf(1.05) first id over a permutation of ``n`` rows
+    and k - 1 uniform ones, as the benchmark's click traffic draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.rand(b, generator=g, device=dev, dtype=torch.float64)
+    s = 1.05
+    rank = ((1 - u * (1 - (n + 1.0) ** (1 - s))) ** (1 / (1 - s))).long().clamp(1, n) - 1
+    perm = torch.randperm(n, generator=g, device=dev)
+    rest = torch.randint(0, n, (b, k - 1), generator=g, device=dev)
+    return torch.cat([perm[rank][:, None], rest], 1).to(torch.int32).contiguous()
+
+
+def card_plan_vs_plain(pool, limit: int, slots: torch.Tensor, what: str) -> dict:
+    """The card's chunk plan of ``slots``' ids (sorted, grouped over
+    ``limit``) against ``segment_plan_plain``, bitwise, and its device time."""
+    key = torch.sort(slots).values.to(torch.int32)
+    row_ptr = torch.searchsorted(key, torch.arange(limit + 1, dtype=torch.int32,
+                                                   device=key.device), out_int32=True)
+    m = slots.numel()
+    bounds = (pool.SEGMENT_CHUNK, limit + m // pool.SEGMENT_CHUNK,
+              min(limit, m // (pool.SEGMENT_CHUNK + 1)))
+    card = pool._segment_plan(row_ptr, *bounds)
+    plain = pool.segment_plan_plain(row_ptr.cpu(), *bounds)
+    c, sp = int(plain[2][0]), int(plain[2][1])
+    check(torch.equal(card[2].cpu(), plain[2]) and torch.equal(card[0][:c].cpu(), plain[0][:c])
+          and torch.equal(card[1][:sp].cpu(), plain[1][:sp]),
+          f"{what}: the card's chunk plan differs from segment_plan_plain")
+    return {"limit": limit, "slots": m, "chunks": c, "split_rows": sp,
+            "plan": timed(lambda: pool._segment_plan(row_ptr, *bounds),
+                          kernels=pool.PLAN_KERNELS)}
+
+
+def dlrm_phase(dev) -> dict:
+    """Phase 17: DLRM-DCNv2's compact table gradient at the cell's 100-id
+    feature, and the launches of an eager epoch (see the module docstring)."""
+    from movie_recommendation_engine_tpu_torch import small_test_config
+    from movie_recommendation_engine_tpu_torch.core.logging import MetricsLogger
+    from movie_recommendation_engine_tpu_torch.graph import criteo, dataset
+    from movie_recommendation_engine_tpu_torch.ops import pool
+    from movie_recommendation_engine_tpu_torch.train.click_trainer import ClickTrainer
+
+    n, b, k, d = 5_000_000, 8192, 100, 128
+    ids = dlrm_bag_ids(n, b, k, 24, dev)
+    ones = torch.ones((b, k), device=dev)
+    g = torch.randn((b, d), generator=torch.Generator(device=dev).manual_seed(25), device=dev)
+    out = {"shape": f"table slice [{n},{d}] f32, ids [{b},{k}]"}
+    c = pool.compact_rows(ids, spare=n)
+    got = pool.compact_grad(g, ids, ones, c)
+    torch.cuda.synchronize()
+    uniq = torch.unique(ids.long())
+    u = int(c.count)
+    check(u == uniq.numel() and torch.equal(c.rows[:u], uniq) and bool((c.rows[u:] == n).all()),
+          f"dlrm: compact rows {u} against {uniq.numel()} distinct ids")
+    cpu = pool.compact_rows(ids.cpu(), spare=n)
+    cc, ss = int(cpu.layout.totals[0]), int(cpu.layout.totals[1])
+    check(torch.equal(cpu.layout.totals, c.layout.totals.cpu())
+          and torch.equal(cpu.layout.slots, c.layout.slots.cpu())
+          and torch.equal(cpu.layout.chunks[:cc], c.layout.chunks[:cc].cpu())
+          and torch.equal(cpu.layout.splits[:ss], c.layout.splits[:ss].cpu())
+          and torch.equal(cpu.rows, c.rows.cpu()),
+          "dlrm: the card's compact layout differs from the CPU's")
+    like = torch.zeros((), device=dev).expand(b * k, d)
+    plain = pool.gather_pool_bwd_segment_plain(like, ids, ones, b * k, g, c.layout)
+    check(same_bits(got, plain), "dlrm: compact_grad differs from its plain version")
+    del plain, like
+    table = torch.zeros((n + 1, d), device=dev)
+    dense, _ = pool.gather_pool_bwd(table, ids, ones, n, g, need_weights=False)
+    check(torch.equal(got[:u], dense[uniq]) and not bool(got[u:].any()),
+          "dlrm: compact_grad differs from the dense segment route's touched rows")
+    del dense, table
+    out.update(lookups=b * k, unique_rows=u, chunks=cc, split_rows=ss,
+               compact_rows=timed(lambda: pool.compact_rows(ids, spare=n),
+                                  kernels=pool.PLAN_KERNELS),
+               compact_grad=timed(lambda: pool.compact_grad(g, ids, ones, c)))
+    run = torch.repeat_interleave(torch.arange(b * k, device=dev),
+                                  (c.layout.row_ptr[1:] - c.layout.row_ptr[:-1]).long())
+    out["plan_compact"] = card_plan_vs_plain(pool, b * k, run, "dlrm compact ids")
+    slots = (torch.rand(600_000, generator=torch.Generator(device=dev).manual_seed(26),
+                        device=dev) ** 3 * 59_393).long().clamp(max=59_392)
+    out["plan_59k"] = card_plan_vs_plain(pool, 59_393, slots, "59,393-row layer")
+
+    bags, held = (3, 1, 100, 2, 1), (4000, 3, 50_000, 20, 1)
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = os.path.join(tmp, "criteo")
+        for split, size in (("train", 3 * 512), ("val", 700)):
+            dense_x = np.log1p(rng.lognormal(0.0, 1.0, (size, 13))).astype(np.float32)
+            sparse = [rng.integers(0, r, (size, kf)).astype(np.int32)
+                      for kf, r in zip(bags, held)]
+            criteo.write_split(data_dir, split, dense_x, sparse,
+                               (rng.random(size) < 0.1).astype(np.float32))
+        cfg = small_test_config().override({
+            "model.arch": "dlrm_dcnv2", "data.source": "criteo", "data.data_dir": data_dir,
+            "model.embed_dim": 128, "model.dlrm_bag_sizes": list(bags),
+            "model.dlrm_table_rows": list(held), "model.dlrm_bottom": [512, 256, 128],
+            "model.dlrm_top": [1024, 1024, 512, 256, 1], "model.dlrm_cross_layers": 3,
+            "model.dlrm_cross_rank": 512, "train.batch_size": 512,
+            "paths.checkpoint_dir": os.path.join(data_dir, "ckpt")})
+        tr = ClickTrainer(cfg, dataset.load(cfg), MetricsLogger(io.StringIO()), device=dev)
+        tr.graphed = False
+        zero_launches()
+        epoch = tr.train_epoch(0)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    steps, f = epoch["steps"], len(bags)
+    want = {"gather_pool": f * steps, "gather_pool_bwd": 0, "gather_pool_bwd_segment": f * steps,
+            "segment_plan": f * steps * pool.PLAN_KERNELS}
+    check(launches == want, f"dlrm: an eager epoch of {steps} steps over {f} bags launched "
+          f"{launches}, expected {want}")
+    check(math.isfinite(epoch["loss"]) and epoch["lookups"] == steps * 512 * sum(bags),
+          f"dlrm: epoch {epoch}")
+    out.update(epoch_steps=steps, launches=launches, epoch_unique_rows=epoch["unique_rows"])
+    emit("dlrm", **out)
+    return out
+
+
 def hstu_lookup_phase(dev, n: int = 28_300, b: int = 128) -> dict:
     """Phase 16: HSTU's two item lookups at the train step's shape, ``n``
     table rows and ``b`` users (see the module docstring)."""
@@ -1085,7 +1215,8 @@ def hstu_lookup_phase(dev, n: int = 28_300, b: int = 128) -> dict:
     torch.cuda.synchronize()
     out["launches"] = read_launches()
     check(out["launches"] == {"gather_pool": 2, "gather_pool_bwd": 2,
-                              "gather_pool_bwd_segment": 2, "segment_plan": 2},
+                              "gather_pool_bwd_segment": 2,
+                              "segment_plan": 2 * pool.PLAN_KERNELS},
           f"hstu_lookup: one forward and backward of both lookups launched {out['launches']}")
     emit("hstu_lookup", **out)
     return out
@@ -1174,9 +1305,9 @@ def train_phase(dev) -> tuple[dict, dict, dict]:
         check(launches["gather_pool_bwd"] == launches["gather_pool_bwd_segment"] == 2 * steps,
               f"gather_pool_bwd launched {launches} in {steps} steps: expected 2 a step, "
               "all on the segment route")
-        check(launches["segment_plan"] >= steps,
-              f"the segment plan kernel launched {launches['segment_plan']} times in {steps} "
-              "steps: expected one a step (the batch layer) and one a table refresh")
+        check(launches["segment_plan"] >= steps * pool.PLAN_KERNELS,
+              f"the segment plan kernels launched {launches['segment_plan']} times in {steps} "
+              "steps: expected one plan a step (the batch layer) and one a table refresh")
         check(launches["gather_pool"] == 2 * steps + 2 * 2,
               f"gather_pool launched {launches['gather_pool']} times in {steps} steps "
               "and 2 validation passes")
@@ -1442,6 +1573,7 @@ def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
     fields for ``gather_pool`` and ``gather_pool_bwd``, the engine (for the
     at-scale PPR build) and its embeddings (for the retrieval phase)."""
     from movie_recommendation_engine_tpu_torch import api, default_config
+    from movie_recommendation_engine_tpu_torch.ops import pool
     from movie_recommendation_engine_tpu_torch.ops.hub_pool import HubPool
     from movie_recommendation_engine_tpu_torch.train.trainer import StepDraws
 
@@ -1523,9 +1655,9 @@ def train_hub_phase(dev) -> tuple[dict, dict, object, np.ndarray]:
           == launches["gather_pool_bwd"] == 2 * n_steps,
           f"hub steps: launches {launches} in {n_steps} steps, expected 2 forward and 2 "
           "segment backward a step (layer 0 and the batch layer)")
-    check(launches["segment_plan"] == n_steps,
-          f"hub steps: {launches['segment_plan']} segment plans in {n_steps} steps, expected "
-          "one a step (the batch layer's; layer 0's is built at refresh)")
+    check(launches["segment_plan"] == n_steps * pool.PLAN_KERNELS,
+          f"hub steps: {launches['segment_plan']} plan launches in {n_steps} steps, expected "
+          "one plan a step (the batch layer's; layer 0's is built at refresh)")
 
     determinism = step_determinism(tr, q, p)
     xcheck = step_kernel_vs_xla(tr, q, p)
@@ -3848,6 +3980,8 @@ def main() -> int:
     check_phase(dev)
     hstu_lookup = hstu_lookup_phase(dev)
     bwd["hstu_lookup"] = {k: hstu_lookup[k] for k in ("history", "loss", "launches")}
+    bwd["dlrm"] = {k: v for k, v in dlrm_phase(dev).items()
+                   if k in ("shape", "unique_rows", "launches", "compact_grad", "plan_compact")}
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as d:

@@ -39,7 +39,9 @@ class DataConfig:
     use_data_subset: bool = True       # honored here (ref run.py:48 hardcodes 0.30)
     data_subset_fraction: float = 0.30
     # "synthetic" generates a MovieLens-shaped workload on the fly (no files
-    # needed); "movielens" reads movies/ratings/tags/links CSVs.
+    # needed); "movielens" reads movies/ratings/tags/links CSVs; "criteo"
+    # reads click samples in MLPerf's multi-hot array layout
+    # (graph/criteo.py), the data of ``model.arch="dlrm_dcnv2"``.
     source: str = "movielens"
     # Synthetic workload scale (used when source == "synthetic").
     synthetic_num_movies: int = 4000
@@ -228,6 +230,25 @@ class ModelConfig:
     hstu_dqk: int = 128                # query / key width of a head
     hstu_dv: int = 128                 # value width of a head
     hstu_max_len: int = 200            # positions of the forward (last items)
+    # "dlrm_dcnv2": DLRM (Naumov et al., arXiv:1906.00091) with the DCN-V2
+    # low-rank cross interaction (Wang et al., arXiv:2008.13535), MLPerf
+    # Training's click-through ranker, over ``data.source="criteo"``
+    # (models/dlrm.py, train/click_trainer.py). It reads ``embed_dim`` as
+    # the tables' width, and ``train.batch_size`` and ``train.learning_rate``
+    # (Adagrad, row-wise on the tables). The defaults are the published
+    # MLPerf sizes; ``dlrm_rows_held`` (empty: every row) is the rows this
+    # device holds of each table, its ids drawn from that slice.
+    dlrm_dense_features: int = 13
+    dlrm_bag_sizes: tuple = (3, 2, 1, 2, 6, 1, 1, 1, 1, 7, 3, 8, 1, 6, 9, 5, 1, 1, 1, 12, 100,
+                             27, 10, 3, 1, 1)
+    dlrm_table_rows: tuple = (40000000, 39060, 17295, 7424, 20265, 3, 7122, 1543, 63,
+                              40000000, 3067956, 405282, 10, 2209, 11938, 155, 4, 976, 14,
+                              40000000, 40000000, 40000000, 590152, 12973, 108, 36)
+    dlrm_rows_held: tuple = ()
+    dlrm_bottom: tuple = (512, 256, 128)
+    dlrm_top: tuple = (1024, 1024, 512, 256, 1)
+    dlrm_cross_layers: int = 3
+    dlrm_cross_rank: int = 512
 
 
 @dataclass

@@ -162,3 +162,27 @@ def _recommend(embeddings: torch.Tensor, query_idx: torch.Tensor, k: int,
         # A scalar fill: no host tensor to copy inside a capture.
         sims.scatter_(1, query_idx.long()[:, None], -torch.inf)
     return top_k(sims, k)
+
+
+def auc(scores: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """ROC AUC of ``scores`` [n] against 0/1 ``labels`` [n], on their device
+    (0-d float64): one sort of the scores, each run of equal scores given
+    its mean rank (ties count one half), and the positives' rank sum,
+    ``(R+ - P (P + 1) / 2) / (P N)``. Every rank sum is a multiple of 1/2
+    far below 2**52, so it is exact in float64 whatever the order of its
+    additions. NaN where one class is absent."""
+    n = scores.shape[0]
+    order = torch.argsort(scores)
+    s = scores[order]
+    first = torch.ones(n, dtype=torch.bool, device=s.device)
+    first[1:] = s[1:] != s[:-1]
+    run = torch.cumsum(first, 0) - 1                              # run of each sorted score
+    pos = torch.arange(1, n + 1, dtype=torch.float64, device=s.device)
+    lo = torch.zeros(n, dtype=torch.float64, device=s.device).scatter_reduce_(
+        0, run, pos, "amin", include_self=False)
+    hi = torch.zeros(n, dtype=torch.float64, device=s.device).scatter_reduce_(
+        0, run, pos, "amax", include_self=False)
+    y = labels[order].double()
+    p = y.sum()
+    rank_sum = (y * (lo[run] + hi[run]) / 2).sum()
+    return (rank_sum - p * (p + 1) / 2) / (p * (n - p))

@@ -348,9 +348,14 @@ def _from_columns(raw: dict, cfg: Config) -> MovieLensData:
     )
 
 
-def load(cfg: Config, logger: MetricsLogger | None = None) -> MovieLensData:
-    """``data.source``: "synthetic" (the generator) or "movielens" (the CSVs
-    in ``data.data_dir``; ``logger`` receives the ``ingest`` event)."""
+def load(cfg: Config, logger: MetricsLogger | None = None):
+    """``data.source``: "synthetic" (the generator), "movielens" (the CSVs
+    in ``data.data_dir``; ``logger`` receives the ``ingest`` event) or
+    "criteo" (click samples, ``graph/criteo.py``: a ``CriteoData``)."""
     if cfg.data.source == "synthetic":
         return load_synthetic(cfg)
+    if cfg.data.source == "criteo":
+        from . import criteo
+
+        return criteo.load(cfg, logger)
     return load_movielens_csv(cfg, logger)

@@ -30,11 +30,11 @@
 // once or more (an id without slots as one empty chunk). part is -1 where the
 // chunk is its row's only one, else the index of the f32 partial sum it
 // writes. For every id of more than one chunk, `splits` holds (row, first
-// part, end part). The chunk plan is segment_plan_kernel below (pass 0): it
-// writes the counts (C, S, P) to device memory and the passes read them
-// there, so building a layout and using it never waits on the host; the
-// passes' grids are sized by bounds of C and S known from the shapes
-// (C <= limit + B * K / chunk), and their extra warps leave at once.
+// part, end part). The chunk plan is pass 0 below (three segment_plan_*
+// kernels): it writes the counts (C, S, P) to device memory and the passes
+// read them there, so building a layout and using it never waits on the
+// host; the passes' grids are sized by bounds of C and S known from the
+// shapes (C <= limit + B * K / chunk), and their extra warps leave at once.
 //
 // Pass 1 (segment_sum_kernel), one warp per chunk, eight a block: the warp
 // stages its chunk's (g row b = slot / K, weight) pairs in shared memory, then
@@ -221,15 +221,20 @@ combine_kernel(const int* __restrict__ splits, const int* __restrict__ totals,
   }
 }
 
-// The chunk plan (pass 0), one block for the whole table, over tiles of
-// 1024 consecutive ids, one id a thread: each thread counts its id's chunks
-// (and, for an id of more than one chunk, its partials and one split row), a
-// block-wide exclusive scan plus the tiles before gives its offsets, and it
-// writes its id's chunks (row, start, end, part) and split (row, first part,
-// end part). Neighbouring threads write neighbouring chunks, so one SM's
-// stores stay few. Thread 0 writes the totals (C, S, P). Ids in order,
-// chunks in order within an id: the plan of ops/pool.py:segment_plan_plain,
-// without reading anything back to the host.
+// The chunk plan (pass 0), over tiles of 1024 consecutive ids, one block a
+// tile and one id a thread, in three launches. (a) segment_plan_tile_kernel:
+// each thread counts its id's chunks (and, for an id of more than one chunk,
+// its partials and one split row), and each block sums its tile's. (b)
+// segment_plan_offsets_kernel, one block: an exclusive scan of the tiles'
+// sums gives each tile's offsets, in place, and the totals (C, S, P). (c)
+// segment_plan_write_kernel: each block scans its tile again from its offset,
+// and each thread writes its id's chunks (row, start, end, part) and split
+// (row, first part, end part); neighbouring threads write neighbouring
+// chunks. Ids in order, chunks in order within an id: the plan of
+// ops/pool.py:segment_plan_plain, without reading anything back to the host.
+// A block a tile, and not one block for all: one block walking a bag's
+// 819,200 compact ids (ops/pool.py:compact_rows) tile by tile takes ~0.9 ms
+// on an H100.
 constexpr int kPlanThreads = 1024;
 
 __device__ __forceinline__ int chunks_of(int count, int chunk) {
@@ -252,44 +257,89 @@ __device__ __forceinline__ int3 warp_scan(int3 v, int lane) {
   return v;
 }
 
-__global__ void __launch_bounds__(kPlanThreads)
-segment_plan_kernel(const int* __restrict__ row_ptr, int4* __restrict__ chunks,
-                    int* __restrict__ splits, int* __restrict__ totals, int limit, int chunk) {
-  __shared__ int3 warp_sums[kPlanThreads / 32];
+__device__ __forceinline__ int3 operator-(int3 a, int3 b) {
+  return make_int3(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+
+// Id r's (chunks, partials, split rows) and its slots [start, end); 0 past limit.
+__device__ __forceinline__ int3 plan_counts(const int* __restrict__ row_ptr, int r, int limit,
+                                            int chunk, int& start, int& end) {
+  start = end = 0;
+  int m = 0;
+  if (r < limit) {
+    start = row_ptr[r];
+    end = row_ptr[r + 1];
+    m = chunks_of(end - start, chunk);
+  }
+  return make_int3(m, m > 1 ? m : 0, m > 1 ? 1 : 0);
+}
+
+// Inclusive scan of v over the block's kPlanThreads threads; `total` gets the
+// block's sum. Every thread of the block calls it.
+__device__ __forceinline__ int3 block_scan(int3 v, int3* warp_sums, int3& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int3 before_tile = make_int3(0, 0, 0);  // chunks, partials, split rows of earlier tiles
-  for (int base = 0; base < limit; base += kPlanThreads) {
-    const int r = base + static_cast<int>(threadIdx.x);
-    int start = 0, end = 0, m = 0;
-    if (r < limit) {
-      start = row_ptr[r];
-      end = row_ptr[r + 1];
-      m = chunks_of(end - start, chunk);
-    }
-    const int3 mine = make_int3(m, m > 1 ? m : 0, m > 1 ? 1 : 0);
-    const int3 inc = warp_scan(mine, lane);
-    if (lane == 31) warp_sums[warp] = inc;
-    __syncthreads();
-    if (warp == 0) warp_sums[lane] = warp_scan(warp_sums[lane], lane);
-    __syncthreads();
-    const int3 at = before_tile + (warp ? warp_sums[warp - 1] : make_int3(0, 0, 0)) + inc;
-    const int c = at.x - mine.x, p = at.y - mine.y, s = at.z - mine.z;
-    for (int j = 0; j < m; ++j) {
-      const int a = start + j * chunk;
-      chunks[c + j] = make_int4(r, a, min(a + chunk, end), m > 1 ? p + j : -1);
-    }
-    if (m > 1) {
-      splits[3 * s] = r;
-      splits[3 * s + 1] = p;
-      splits[3 * s + 2] = p + m;
-    }
-    before_tile = before_tile + warp_sums[kPlanThreads / 32 - 1];
-    __syncthreads();  // warp_sums is rewritten by the next tile
+  const int3 inc = warp_scan(v, lane);
+  if (lane == 31) warp_sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) warp_sums[lane] = warp_scan(warp_sums[lane], lane);
+  __syncthreads();
+  const int3 at = (warp ? warp_sums[warp - 1] : make_int3(0, 0, 0)) + inc;
+  total = warp_sums[kPlanThreads / 32 - 1];
+  __syncthreads();  // warp_sums is rewritten by the next scan
+  return at;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+segment_plan_tile_kernel(const int* __restrict__ row_ptr, int3* __restrict__ tile_sums,
+                         int limit, int chunk) {
+  __shared__ int3 warp_sums[kPlanThreads / 32];
+  int start, end;
+  int3 total;
+  block_scan(plan_counts(row_ptr, blockIdx.x * kPlanThreads + threadIdx.x, limit, chunk, start,
+                         end),
+             warp_sums, total);
+  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+segment_plan_offsets_kernel(int3* __restrict__ tile_sums, int tiles, int* __restrict__ totals) {
+  __shared__ int3 warp_sums[kPlanThreads / 32];
+  int3 before = make_int3(0, 0, 0);
+  for (int base = 0; base < tiles; base += kPlanThreads) {
+    const int t = base + static_cast<int>(threadIdx.x);
+    const int3 mine = t < tiles ? tile_sums[t] : make_int3(0, 0, 0);
+    int3 total;
+    const int3 at = block_scan(mine, warp_sums, total);
+    if (t < tiles) tile_sums[t] = before + at - mine;  // the tiles before t
+    before = before + total;
   }
   if (threadIdx.x == 0) {
-    totals[0] = before_tile.x;
-    totals[1] = before_tile.z;
-    totals[2] = before_tile.y;
+    totals[0] = before.x;
+    totals[1] = before.z;
+    totals[2] = before.y;
+  }
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+segment_plan_write_kernel(const int* __restrict__ row_ptr, const int3* __restrict__ tile_offsets,
+                          int4* __restrict__ chunks, int* __restrict__ splits, int limit,
+                          int chunk) {
+  __shared__ int3 warp_sums[kPlanThreads / 32];
+  const int r = blockIdx.x * kPlanThreads + threadIdx.x;
+  int start, end;
+  int3 total;
+  const int3 mine = plan_counts(row_ptr, r, limit, chunk, start, end);
+  const int3 at = tile_offsets[blockIdx.x] + block_scan(mine, warp_sums, total);
+  const int m = mine.x;
+  const int c = at.x - mine.x, p = at.y - mine.y, s = at.z - mine.z;
+  for (int j = 0; j < m; ++j) {
+    const int a = start + j * chunk;
+    chunks[c + j] = make_int4(r, a, min(a + chunk, end), m > 1 ? p + j : -1);
+  }
+  if (m > 1) {
+    splits[3 * s] = r;
+    splits[3 * s + 1] = p;
+    splits[3 * s + 2] = p + m;
   }
 }
 
@@ -349,12 +399,18 @@ extern "C" int gather_pool_bwd_segment_launch(const int* slots, const int* chunk
 }
 
 // The chunk plan of row_ptr [limit + 1] (ops/pool.py:segment_plan_plain),
-// written into chunks, splits and totals (C, S, P) by one block.
+// written into chunks, splits and totals (C, S, P) in three launches;
+// tile_sums is int32 scratch of 3 * ceil(limit / 1024).
 extern "C" int gather_pool_bwd_segment_plan_launch(const int* row_ptr, int* chunks, int* splits,
-                                                   int* totals, int limit, int chunk,
-                                                   void* stream) {
-  segment_plan_kernel<<<1, kPlanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      row_ptr, reinterpret_cast<int4*>(chunks), splits, totals, limit, chunk);
+                                                   int* totals, int* tile_sums, int limit,
+                                                   int chunk, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int tiles = (limit + kPlanThreads - 1) / kPlanThreads;
+  int3* sums = reinterpret_cast<int3*>(tile_sums);
+  segment_plan_tile_kernel<<<tiles, kPlanThreads, 0, s>>>(row_ptr, sums, limit, chunk);
+  segment_plan_offsets_kernel<<<1, kPlanThreads, 0, s>>>(sums, tiles, totals);
+  segment_plan_write_kernel<<<tiles, kPlanThreads, 0, s>>>(
+      row_ptr, sums, reinterpret_cast<int4*>(chunks), splits, limit, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,6 +32,12 @@ results. ``plan`` picks ``direct`` unless told otherwise: on an H100 it beat
 the kernel (a target's incoming edges cut into slices, one ``gather_pool``
 call, then each target's slices in order): the PPR push and the edge
 forward's message sum, bitwise repeatable where ``index_add_`` is not.
+
+``compact_rows`` / ``compact_grad`` give a bag's table gradient over the
+rows its batch touched alone: one sort of the batch's ids numbers the
+distinct ones in [0, B * K), and the segment route's passes run on those
+compact ids with ``limit = B * K``, so nothing of the table's size is made
+(DLRM-DCNv2's tables, ``models/dlrm.py``).
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ from . import _build
 # Kernel launches by this process (each wrapper adds one per launch; the
 # backward adds one to BWD_LAUNCHES per call that launches, and one to
 # SEGMENT_LAUNCHES per call that takes the segment route; PLAN_LAUNCHES
-# counts the segment layouts planned on the card).
+# adds PLAN_KERNELS per segment layout planned on the card).
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 SEGMENT_LAUNCHES = 0
@@ -67,6 +73,8 @@ MAX_K = _MAX_SMEM // (_DIRECT_WARPS * 8)
 # way (csrc/gather_pool_bwd_segment.cu, 8 warps a block).
 SEGMENT_CHUNK = 32           # valid slots a warp of pass 1 sums
 MAX_CHUNK = _MAX_SMEM // (_BWD_WARPS * 8)
+PLAN_TILE = 1024             # ids a block of the plan kernels scans (kPlanThreads)
+PLAN_KERNELS = 3             # launches of one plan: tile sums, tile offsets, writes
 
 _fn = None
 _bwd_fn = None
@@ -361,8 +369,8 @@ def segment_layout(nbrs: torch.Tensor, valid_limit: int, chunk: int = SEGMENT_CH
     """The ``SegmentLayout`` of ``nbrs`` [B, K] for ids in
     ``[0, valid_limit)``, on ``nbrs``' device: a stable sort of the ids
     (masked slots sort last; 16-bit keys where the ids fit), row pointers
-    by ``searchsorted``, then the chunk plan: on the card the kernel
-    ``csrc/gather_pool_bwd_segment.cu:segment_plan_kernel``, which reads
+    by ``searchsorted``, then the chunk plan: on the card the plan kernels of
+    ``csrc/gather_pool_bwd_segment.cu`` (``_segment_plan``), which read
     nothing back to the host; on the CPU ``segment_plan_plain``.
 
     With ``weights`` [B, K], a slot whose weight is exactly 0 is masked
@@ -502,7 +510,7 @@ def _segment_kernel():
         fn.restype = ctypes.c_int
         plan = lib.gather_pool_bwd_segment_plan_launch
         plan.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         plan.restype = ctypes.c_int
         lib.gather_pool_bwd_segment_error_string.argtypes = [ctypes.c_int]
         lib.gather_pool_bwd_segment_error_string.restype = ctypes.c_char_p
@@ -511,21 +519,25 @@ def _segment_kernel():
 
 
 def _segment_plan(row_ptr: torch.Tensor, chunk: int, max_chunks: int, max_splits: int):
-    """``segment_plan_plain`` on the card: one launch of the plan kernel,
-    which writes the totals on the device (the rows past them are unset)."""
+    """``segment_plan_plain`` on the card: ``PLAN_KERNELS`` launches, one
+    block a tile of ``PLAN_TILE`` ids, which write the totals on the device
+    (the rows past them are unset)."""
     dev = row_ptr.device
+    limit = row_ptr.shape[0] - 1
     chunks = torch.empty((max_chunks, 4), dtype=torch.int32, device=dev)
     splits = torch.empty((max_splits, 3), dtype=torch.int32, device=dev)
     totals = torch.empty(3, dtype=torch.int32, device=dev)
+    sums = torch.empty(3 * -(-limit // PLAN_TILE), dtype=torch.int32, device=dev)
     _, plan, err_str = _segment_kernel()
     with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = plan(row_ptr.data_ptr(), chunks.data_ptr(), splits.data_ptr(), totals.data_ptr(),
-                  row_ptr.shape[0] - 1, chunk, torch.cuda.current_stream(dev).cuda_stream)
+                  sums.data_ptr(), limit, chunk, stream)
     if rc != 0:
         raise RuntimeError(f"segment plan kernel launch failed: {err_str(rc).decode()} "
                            f"(cudaError {rc})")
     global PLAN_LAUNCHES
-    PLAN_LAUNCHES += 1
+    PLAN_LAUNCHES += PLAN_KERNELS
     return chunks, splits, totals
 
 
@@ -635,6 +647,83 @@ def gather_pool_bwd(table: torch.Tensor, nbrs: torch.Tensor, weights: torch.Tens
     global BWD_LAUNCHES
     BWD_LAUNCHES += 1
     return d_table, d_w
+
+
+# ---------------------------------------------------------------------------
+# The compact route: a bag's table gradient over the rows its batch touched
+# ---------------------------------------------------------------------------
+
+class CompactRows(NamedTuple):
+    """The distinct ids of a [B, K] id table, as compact rows: the id of slot
+    ``i`` in sorted order gets the compact row of its run of equal ids,
+    numbered from 0 in id order, so every compact row lies in ``[0, B * K)``
+    whatever the table's size. Every shape is fixed by B and K, so a step
+    that makes one stays inside its CUDA graph, and nothing is read back.
+
+    ``layout`` is the ``SegmentLayout`` of the compact ids over the limit
+    ``B * K`` (equal to ``segment_layout`` of them: the same stable order
+    of the slots, so the same sums); ``rows`` [B * K] int64 holds the id of
+    compact row r for r below ``count`` and a spare row past it; ``count``
+    (0-d int32, on the device) is the number of distinct ids."""
+
+    layout: SegmentLayout
+    rows: torch.Tensor
+    count: torch.Tensor
+
+
+def compact_rows(ids: torch.Tensor, spare: int | torch.Tensor) -> CompactRows:
+    """The ``CompactRows`` of ``ids`` [B, K] (every id valid) on their
+    device: one stable sort of the ids, the first slot of each run marked,
+    the compact row of each sorted slot by a running count of the marks,
+    row pointers by ``searchsorted``, then the chunk plan of
+    ``segment_layout``. ``spare``, a row no id names (or [B * K]
+    such rows), fills ``rows`` past the count, so that a write through
+    ``rows`` changes no touched row twice."""
+    if ids.dim() != 2:
+        raise ValueError(f"expected ids [B, K], got {tuple(ids.shape)}")
+    b, k = ids.shape
+    m = b * k
+    if not 1 <= m < 2**31 - 1:
+        raise ValueError(f"B*K={m}: the compact route takes 1 <= B*K < 2**31 - 1")
+    dev, chunk = ids.device, SEGMENT_CHUNK
+    sorted_ids, order = torch.sort(ids.reshape(-1), stable=True)
+    first = torch.ones(m, dtype=torch.bool, device=dev)
+    first[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    run = torch.cumsum(first, 0, dtype=torch.int32) - 1            # compact row of each slot
+    row_ptr = torch.searchsorted(run, torch.arange(m + 1, dtype=torch.int32, device=dev),
+                                 out_int32=True)
+    plan = _segment_plan if dev.type == "cuda" else segment_plan_plain
+    chunks, splits, totals = plan(row_ptr, chunk, m + m // chunk, min(m, m // (chunk + 1)))
+    layout = SegmentLayout((b, k), m, chunk, row_ptr, order.to(torch.int32), chunks, splits,
+                           totals)
+    # Each compact row's slots all write its one id: the same value.
+    pad = (torch.full((m,), spare, dtype=torch.int64, device=dev) if isinstance(spare, int)
+           else spare)
+    rows = pad.scatter(0, run.long(), sorted_ids.long())
+    return CompactRows(layout, rows, run[-1] + 1)
+
+
+def compact_grad(g: torch.Tensor, ids: torch.Tensor, weights: torch.Tensor,
+                 compact: CompactRows) -> torch.Tensor:
+    """[B * K, D] f32: row r the gradient of ``gather_pool``'s table row
+    ``compact.rows[r]`` for the f32 cotangent ``g`` [B, D], zero past the
+    count; the segment route's passes over the compact ids with ``limit =
+    B * K`` (on the CPU ``gather_pool_bwd_segment_plain``, its bits). Each
+    touched row's sum is the one the dense segment route makes for it, and
+    nothing of the table's size is made. ``ids`` [B, K] give the shape
+    only; ``weights`` [B, K] f32 are the forward's."""
+    b, k = ids.shape
+    m, d = b * k, g.shape[1]
+    if g.shape != (b, d) or weights.shape != ids.shape:
+        raise ValueError(f"expected g [{b}, D] and weights {tuple(ids.shape)}, got "
+                         f"{tuple(g.shape)}, {tuple(weights.shape)}")
+    # The segment passes read the shape, dtype and device of the table only.
+    like = torch.zeros((), dtype=torch.float32, device=g.device).expand(m, d)
+    if g.device.type == "cpu":
+        return gather_pool_bwd_segment_plain(like, ids, weights, m, g.float(), compact.layout)
+    _check_cuda(weights, g)
+    _bwd_limits(m, d, b, k, compact.layout.chunk)
+    return _segment_d_table(like, ids, weights, m, g, compact.layout)
 
 
 class EdgeSlices(NamedTuple):

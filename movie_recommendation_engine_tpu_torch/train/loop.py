@@ -28,15 +28,19 @@ registered generator state in place, and the next replay draws from the new
 seed as an eager step would. The per-epoch programs live in
 ``graphs.programs``, a pool of their own.
 
-A subclass supplies the model: ``trainer.Trainer`` (PinSage) and
-``seq_trainer.SeqTrainer`` (HSTU) call ``TrainLoop.__init__`` with the
-function that draws their params, and implement ``epoch_batches`` (the
+A subclass supplies the model and its data: ``trainer.Trainer`` (PinSage)
+and ``seq_trainer.SeqTrainer`` (HSTU) over a ``MovieLensData``,
+``click_trainer.ClickTrainer`` (DLRM-DCNv2) over a ``CriteoData``. Each
+calls ``TrainLoop.__init__`` with its data and the function that draws its
+params, and implements ``epoch_batches`` (the
 epoch's batches, the first three entries its two [S, ...] batch tensors and
 the steps in a block), ``_block`` (a block's batches on the device, its
 graph key and its step function), ``graph_inputs``, ``_epoch_stats``,
 ``validate``, ``evaluate``, ``movie_embeddings`` and ``_params_from``;
 ``_epoch_steps`` where ``train_steps`` takes more than the block and ``lr``
-or a block's last steps pad it. ``make_trainer`` picks the subclass of
+or a block's last steps pad it; ``_opt_init`` / ``_opt_to_flat`` /
+``_opt_from_flat`` and ``_val_metric`` where its optimizer is not Adam or
+its validation metric not HR@min(k). ``make_trainer`` picks the subclass of
 ``model.arch``.
 """
 
@@ -54,7 +58,6 @@ from ..config import Config
 from ..core import checkpoint as ckpt
 from ..core.graphs import GraphCache
 from ..core.logging import MetricsLogger, span
-from ..graph.dataset import MovieLensData
 from ..parallel import mesh as mesh_mod
 from . import optim
 
@@ -76,7 +79,7 @@ class TrainLoop:
     trainer over a subclass's model on ``device``; ``init_params(generator)``
     draws the params, ``graphed=False`` keeps its programs eager."""
 
-    def __init__(self, cfg: Config, data: MovieLensData, logger: MetricsLogger | None,
+    def __init__(self, cfg: Config, data: Any, logger: MetricsLogger | None,
                  device: torch.device, init_params: Callable, graphed: bool = True):
         self.cfg = cfg
         self.data = data
@@ -90,7 +93,7 @@ class TrainLoop:
         # JAX's; parity comes from injecting JAX's params and draws.
         self.generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
         self.params = init_params(self.generator)
-        self.opt_state = optim.adam_init(self.params)
+        self.opt_state = self._opt_init(self.params)
         self.compute_dtype = _DTYPES[cfg.train.compute_dtype]
         self.plateau = optim.plateau_init(cfg.train.learning_rate)
         # The step's lr on the device, filled before each block, so that a
@@ -152,6 +155,22 @@ class TrainLoop:
     def _params_from(self, flat: dict[str, np.ndarray]):
         """The params of a checkpoint's flat leaves, on the device."""
         raise NotImplementedError
+
+    def _opt_init(self, params) -> Any:
+        """The optimizer's state for ``params``: Adam's."""
+        return optim.adam_init(params)
+
+    def _opt_to_flat(self) -> dict[str, np.ndarray]:
+        """The optimizer's state as checkpoint leaves."""
+        return optim.state_to_jax(self.opt_state)
+
+    def _opt_from_flat(self, flat: dict[str, np.ndarray]) -> Any:
+        return optim.state_from_jax(flat, self.device)
+
+    def _val_metric(self, val: dict[str, float]) -> float:
+        """The validation metric the plateau, ``best_model`` and early
+        stopping follow (higher is better): HR@min(k)."""
+        return val[f"hit_rate@{min(self.cfg.eval.k_values)}"]
 
     # ---- steps and epochs -------------------------------------------------
 
@@ -257,7 +276,7 @@ class TrainLoop:
         coordinator writes, then every rank waits at a barrier, so none
         reads or exits before the write lands."""
         flat = {f"params/{k}": v for k, v in ckpt.params_to_jax(self.params).items()}
-        flat.update(optim.state_to_jax(self.opt_state))
+        flat.update(self._opt_to_flat())
         flat["rng"] = self._rng_words()
         meta = {"epoch": self.epoch, "best_metric": self.best_metric,
                 "plateau": self.plateau._asdict(), "config": self.cfg.to_dict(), "tag": tag}
@@ -273,7 +292,7 @@ class TrainLoop:
         meta = ckpt.load_meta(path)
         self.graphs.drop()
         self.params = self._params_from(flat)
-        self.opt_state = optim.state_from_jax(flat, self.device)
+        self.opt_state = self._opt_from_flat(flat)
         self._reseed(flat["rng"])
         self.epoch = int(meta["epoch"])
         self.best_metric = float(meta["best_metric"])
@@ -310,7 +329,7 @@ class TrainLoop:
             val = (self.validate() if cfg.eval.eval_every
                    and (epoch + 1) % cfg.eval.eval_every == 0 else None)
             if val is not None:
-                val_metric = val[f"hit_rate@{min(cfg.eval.k_values)}"]
+                val_metric = self._val_metric(val)
                 stats.update({f"val_{k}": v for k, v in val.items()})
                 stats["val_seconds"] = self.eval_seconds
 
@@ -345,11 +364,15 @@ class TrainLoop:
                 "best_path": best_path if best_written else None}
 
 
-def make_trainer(cfg: Config, data: MovieLensData, logger: MetricsLogger | None = None,
+def make_trainer(cfg: Config, data: Any, logger: MetricsLogger | None = None,
                  device=None) -> TrainLoop:
-    """The trainer of ``model.arch``: ``trainer.Trainer`` (PinSage) or
-    ``seq_trainer.SeqTrainer`` (HSTU)."""
+    """The trainer of ``model.arch``: ``trainer.Trainer`` (PinSage),
+    ``seq_trainer.SeqTrainer`` (HSTU) or ``click_trainer.ClickTrainer``
+    (DLRM-DCNv2, the one that takes ``data.source="criteo"``)."""
     arch = cfg.model.arch
+    if (arch == "dlrm_dcnv2") != (cfg.data.source == "criteo"):
+        raise ValueError(f"model.arch={arch!r} with data.source={cfg.data.source!r}: "
+                         "'dlrm_dcnv2' trains on 'criteo' click samples, and only it does")
     if arch == "pinsage":
         from .trainer import Trainer
 
@@ -358,4 +381,9 @@ def make_trainer(cfg: Config, data: MovieLensData, logger: MetricsLogger | None 
         from .seq_trainer import SeqTrainer
 
         return SeqTrainer(cfg, data, logger, device=device)
-    raise ValueError(f"unknown model.arch {arch!r} (expected 'pinsage' or 'hstu')")
+    if arch == "dlrm_dcnv2":
+        from .click_trainer import ClickTrainer
+
+        return ClickTrainer(cfg, data, logger, device=device)
+    raise ValueError(f"unknown model.arch {arch!r} (expected 'pinsage', 'hstu' or "
+                     "'dlrm_dcnv2')")

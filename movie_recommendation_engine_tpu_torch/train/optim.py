@@ -14,6 +14,15 @@ CUDA graph and replayed (``train/loop.py``), as JAX traces ``step``
 and ``lr`` into its jitted step. ``state_to_jax`` / ``state_from_jax``
 carry the state in JAX's checkpoint layout: ``opt/step`` int32,
 ``opt/mu/<param path>``, ``opt/nu/<param path>``.
+
+DLRM-DCNv2 (``models/dlrm.py``) trains as MLPerf's reference does: Adagrad
+on the dense parameters (``adagrad_update``, torch.optim.Adagrad's formula)
+and FBGEMM's exact row-wise Adagrad on the tables (``rowwise_adagrad_update``),
+which reads and writes only the rows a batch touched, through
+``ops.pool.compact_rows``. Both keep their accumulators in f32, start them
+at 0 and add ``ADAGRAD_EPS`` to the root; ``adagrad_to_flat`` /
+``adagrad_from_flat`` carry them as ``opt/sum/<param path>`` and
+``opt/rows/<table>``.
 """
 
 from __future__ import annotations
@@ -130,3 +139,68 @@ class EarlyStopping:
             return False
         self.num_bad += 1
         return self.num_bad >= self.patience
+
+
+# ---- Adagrad (DLRM-DCNv2) ---------------------------------------------------
+
+ADAGRAD_EPS = 1e-8        # MLPerf's DLRM-DCNv2 reference, dense and row-wise
+
+
+class AdagradState(NamedTuple):
+    sum: Any            # the dense parameters' squared-gradient sums, their structure
+    rows: list          # per table, [rows] f32: the mean squared gradient summed per row
+
+
+def adagrad_init(dense: Any, tables: list) -> AdagradState:
+    return AdagradState(tree.map_tree(torch.zeros_like, dense),
+                        [torch.zeros(t.shape[0], dtype=torch.float32, device=t.device)
+                         for t in tables])
+
+
+@torch.no_grad()
+def adagrad_update(grads: Any, acc: Any, params: Any, lr: float | torch.Tensor,
+                   eps: float = ADAGRAD_EPS) -> None:
+    """torch.optim.Adagrad (no decay, accumulators from 0) in place:
+    ``acc += g * g``, then ``p -= lr * (g / (sqrt(acc) + eps))``; ``lr`` a
+    float or a 0-d f32 tensor on the params' device."""
+    p, g, a = tree.leaves(params), tree.leaves(grads), tree.leaves(acc)
+    torch._foreach_addcmul_(a, g, g)
+    denom = torch._foreach_sqrt(a)
+    torch._foreach_add_(denom, eps)
+    upd = torch._foreach_div(g, denom)
+    torch._foreach_mul_(upd, lr)
+    torch._foreach_sub_(p, upd)
+
+
+@torch.no_grad()
+def rowwise_adagrad_update(table: torch.Tensor, acc: torch.Tensor, rows: torch.Tensor,
+                           d_rows: torch.Tensor, lr: float | torch.Tensor,
+                           eps: float = ADAGRAD_EPS) -> None:
+    """FBGEMM's exact row-wise Adagrad on the rows of ``table`` named by
+    ``rows`` [M] int64, whose summed gradients are ``d_rows`` [M, D] f32:
+    ``acc[r] += mean(g * g)``, then ``w[r] -= (lr / (sqrt(acc[r]) + eps)) *
+    g``. The rows are read and written through ``rows`` alone, and written
+    back by ``index_copy_``, which accumulates nothing: ``rows`` names each
+    touched row once, and its padding names spare rows whose gradient is 0,
+    so every write to one carries its own unchanged value."""
+    a = acc.index_select(0, rows) + (d_rows * d_rows).mean(1)
+    mult = lr / (a.sqrt() + eps)
+    w = table.index_select(0, rows) - mult[:, None] * d_rows
+    table.index_copy_(0, rows, w)
+    acc.index_copy_(0, rows, a)
+
+
+def adagrad_to_flat(state: AdagradState) -> dict[str, np.ndarray]:
+    flat = {f"opt/sum/{k}": x.detach().cpu().numpy().astype(np.float32)
+            for k, x in tree.flatten(state.sum).items()}
+    flat.update({f"opt/rows/{i}": x.detach().cpu().numpy() for i, x in enumerate(state.rows)})
+    return flat
+
+
+def adagrad_from_flat(flat: dict[str, np.ndarray], device) -> AdagradState:
+    sums = tree.unflatten({k[len("opt/sum/"):]: torch.tensor(np.asarray(v), dtype=torch.float32,
+                                                             device=device)
+                           for k, v in flat.items() if k.startswith("opt/sum/")})
+    rows = [torch.tensor(np.asarray(flat[f"opt/rows/{i}"]), dtype=torch.float32, device=device)
+            for i in range(sum(k.startswith("opt/rows/") for k in flat))]
+    return AdagradState(sums, rows)

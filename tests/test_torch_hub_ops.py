@@ -263,7 +263,8 @@ def test_hub_build_at_the_cell_shape_equals_cpu(cuda):
     got, st = build(cuda)
     again, st2 = build(cuda)
     torch.cuda.synchronize()
-    assert (t_pool.SEGMENT_LAUNCHES, t_pool.PLAN_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert (t_pool.SEGMENT_LAUNCHES, t_pool.PLAN_LAUNCHES) == (before[0] + 2,
+                                                               before[1] + 2 * t_pool.PLAN_KERNELS)
     ref, rst = build("cpu")
     assert st == st2
     for x, y in zip(got, again):
